@@ -1,0 +1,111 @@
+"""Conditional estimator base classes.
+
+PyTorch counterpart of ``sbi_tpu/neural_nets/estimators/base.py:33-149``.
+The network is an ``nn.Module`` held by the estimator (``self.net``), so its
+parameters live on the module. The optional ``input_transform`` (z-scoring
+of theta, with its log-det) and ``condition_transform`` (z-scoring of x) are
+applied outside the module. Shapes follow the (sample, batch, *event)
+convention.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ...utils.transforms import IdentityTransform, Transform
+from .shape_handling import reshape_to_batch_event, reshape_to_sample_batch_event
+
+
+class ConditionalEstimator:
+    """Base: holds an ``nn.Module`` + shapes + transforms."""
+
+    def __init__(
+        self,
+        net: nn.Module,
+        input_shape: Tuple[int, ...],
+        condition_shape: Tuple[int, ...],
+        input_transform: Optional[Transform] = None,
+        condition_transform: Optional[Transform] = None,
+    ) -> None:
+        self.net = net
+        self.input_shape = tuple(input_shape)
+        self.condition_shape = tuple(condition_shape)
+        self.input_transform = input_transform or IdentityTransform()
+        self.condition_transform = condition_transform or IdentityTransform()
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.net.parameters()).device
+
+    def _embed_condition(self, condition: torch.Tensor) -> torch.Tensor:
+        """Apply the condition z-scoring (the module applies the embedding)."""
+        return self.condition_transform.forward(condition)
+
+    def loss(self, input: torch.Tensor, condition: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def snapshot(self) -> "ConditionalEstimator":
+        """Copy with the current parameters pinned: posteriors hold a frozen
+        view while a trainer keeps updating its estimator. Torch parameters
+        are mutable, so the network is deep-copied."""
+        snap = copy.copy(self)
+        snap.net = copy.deepcopy(self.net)
+        return snap
+
+
+class ConditionalDensityEstimator(ConditionalEstimator):
+    """Adds log_prob / sample.
+
+    Subclasses implement ``_log_prob(input_bt, cond_bt)`` over flat batches
+    and ``_sample(num, cond_bt, generator)``, both in z-scored space.
+    """
+
+    def _log_prob(self, input: torch.Tensor, condition: torch.Tensor) -> torch.Tensor:
+        """input (B, *event_in) z-scored, condition (B, *event_cond) z-scored."""
+        raise NotImplementedError
+
+    def _sample(self, num_samples: int, condition: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Return (num_samples, B, *event_in) in z-scored space."""
+        raise NotImplementedError
+
+    def log_prob(self, input, condition) -> torch.Tensor:
+        """input (S, B, *ev), condition (B, *cond) -> (S, B)."""
+        device = self.device
+        input = reshape_to_sample_batch_event(input, self.input_shape, device=device)
+        condition = reshape_to_batch_event(condition, self.condition_shape, device=device)
+        S, B = input.shape[0], input.shape[1]
+        z, ldj = self.input_transform.forward_and_log_det(input)
+        zc = self._embed_condition(condition)
+        flat = z.reshape((S * B,) + self.input_shape)
+        cond_rep = zc[None].expand((S,) + tuple(zc.shape)).reshape((S * B,) + tuple(zc.shape[1:]))
+        lp = self._log_prob(flat, cond_rep).reshape(S, B)
+        return lp + ldj
+
+    def sample(self, sample_shape, condition, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        condition = reshape_to_batch_event(condition, self.condition_shape, device=self.device)
+        B = condition.shape[0]
+        num = 1
+        for s in sample_shape:
+            num *= int(s)
+        zc = self._embed_condition(condition)
+        z = self._sample(num, zc, generator)  # (num, B, *event)
+        theta = self.input_transform.inverse(z)
+        return theta.reshape(tuple(sample_shape) + (B,) + self.input_shape)
+
+    def loss(self, input, condition) -> torch.Tensor:
+        """-log q(input | condition): input (B, *ev), condition (B, *cond) -> (B,)."""
+        input = torch.as_tensor(input, dtype=torch.float32, device=self.device)
+        return -self.log_prob(input[None], condition)[0]
+
+    def sample_and_log_prob(self, sample_shape, condition, generator=None):
+        samples = self.sample(sample_shape, condition, generator=generator)
+        lp = self.log_prob(
+            samples.reshape((-1,) + tuple(samples.shape[-len(self.input_shape) - 1:])),
+            condition,
+        )
+        return samples, lp.reshape(tuple(sample_shape) + (-1,))

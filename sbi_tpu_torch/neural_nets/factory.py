@@ -1,0 +1,49 @@
+"""String -> builder factories, returning ``build_fn(batch_theta, batch_x)``
+closures so nets are shaped and z-scored from the first data batch
+(PyTorch counterpart of ``sbi_tpu/neural_nets/factory.py``). This slice
+ports ``model="nsf"``; the other models come with later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+
+def posterior_nn(
+    model: str = "maf",
+    z_score_theta: Optional[str] = "independent",
+    z_score_x: Optional[str] = "independent",
+    hidden_features: int = 50,
+    num_transforms: int = 5,
+    num_bins: int = 10,
+    embedding_net=None,
+    num_components: int = 10,
+    **kwargs,
+) -> Callable:
+    """Density-estimator builder for NPE.
+
+    Returns ``build_fn(batch_theta, batch_x) -> ConditionalDensityEstimator``.
+    ``device`` and ``generator`` pass through ``kwargs`` to the builder.
+    """
+
+    def build_fn(batch_theta, batch_x):
+        if model != "nsf":
+            raise NotImplementedError(
+                f"posterior_nn(model='{model}') is not ported yet; only 'nsf' is. "
+                "The other models come with later slices."
+            )
+        from .net_builders.flow import build_nsf
+
+        return build_nsf(
+            batch_theta,
+            batch_x,
+            z_score_theta=z_score_theta,
+            z_score_x=z_score_x,
+            hidden_features=hidden_features,
+            num_transforms=num_transforms,
+            num_bins=num_bins,
+            embedding_net=embedding_net,
+            **kwargs,
+        )
+
+    return build_fn

@@ -1,0 +1,3 @@
+from .tasks import Task, get_task, slcp_simulator, two_moons_simulator
+
+__all__ = ["Task", "get_task", "slcp_simulator", "two_moons_simulator"]

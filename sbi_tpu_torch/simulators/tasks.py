@@ -1,0 +1,101 @@
+"""Benchmark tasks of the NSF serving path: two_moons and slcp.
+
+PyTorch counterpart of ``sbi_tpu/simulators/tasks.py`` (simulators and
+``get_task`` for these two tasks). Simulators draw their noise from an
+explicit ``torch.Generator`` on the device of ``theta``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from ..utils.distributions import BoxUniform, Distribution
+from ..utils.sbiutils import ensure_theta_batched, next_generator
+
+
+def two_moons_simulator(theta, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    theta = ensure_theta_batched(theta)
+    g = next_generator(generator, theta.device)
+    n = theta.shape[0]
+    u = torch.rand((n,), generator=g, device=theta.device)
+    a = -math.pi / 2 + math.pi * u
+    r = 0.1 + 0.01 * torch.randn((n,), generator=g, device=theta.device)
+    p = torch.stack([r * torch.cos(a) + 0.25, r * torch.sin(a)], dim=-1)
+    sq2 = math.sqrt(2.0)
+    shift = torch.stack(
+        [-(theta[:, 0] + theta[:, 1]).abs() / sq2,
+         (-theta[:, 0] + theta[:, 1]) / sq2],
+        dim=-1,
+    )
+    return p + shift
+
+
+def _slcp_cov(theta: torch.Tensor) -> torch.Tensor:
+    s1 = theta[..., 2] ** 2
+    s2 = theta[..., 3] ** 2
+    rho = torch.tanh(theta[..., 4])
+    c11 = s1**2
+    c22 = s2**2
+    c12 = rho * s1 * s2
+    row1 = torch.stack([c11, c12], dim=-1)
+    row2 = torch.stack([c12, c22], dim=-1)
+    return torch.stack([row1, row2], dim=-2)  # (..., 2, 2)
+
+
+def slcp_simulator(theta, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """SLCP: 4 iid draws from a 2D Gaussian whose mean/cov come from theta."""
+    theta = ensure_theta_batched(theta)
+    g = next_generator(generator, theta.device)
+    n = theta.shape[0]
+    mean = theta[:, :2]
+    cov = _slcp_cov(theta)
+    # jitter for numerical stability of cholesky near rho=+-1
+    chol = torch.linalg.cholesky(cov + 1e-6 * torch.eye(2, device=theta.device))
+    eps = torch.randn((n, 4, 2), generator=g, device=theta.device)
+    draws = mean[:, None, :] + torch.einsum("nij,ntj->nti", chol, eps)
+    return draws.reshape(n, 8)
+
+
+@dataclass
+class Task:
+    name: str
+    prior: Distribution
+    simulator: Callable
+    theta_dim: int
+    x_dim: int
+    reference_sampler: Optional[Callable] = None
+    log_likelihood: Optional[Callable] = None
+
+    def default_x_o(self, generator: Optional[torch.Generator] = None, theta_o=None):
+        if theta_o is None:
+            theta_o = self.prior.sample((1,), generator=generator)
+        x_o = self.simulator(theta_o, generator=generator)
+        return theta_o, x_o
+
+
+def get_task(name: str, device=None) -> Task:
+    if name == "two_moons":
+        return Task(
+            name="two_moons",
+            prior=BoxUniform(-torch.ones(2), torch.ones(2), device=device),
+            simulator=two_moons_simulator,
+            theta_dim=2,
+            x_dim=2,
+        )
+    if name == "slcp":
+        return Task(
+            name="slcp",
+            prior=BoxUniform(-3 * torch.ones(5), 3 * torch.ones(5), device=device),
+            simulator=slcp_simulator,
+            theta_dim=5,
+            x_dim=8,
+        )
+    if name in ("gaussian_linear", "linear_mvg_2d", "gaussian_mixture"):
+        raise NotImplementedError(
+            f"Task '{name}' is not ported yet; it comes with a later slice."
+        )
+    raise ValueError(f"Unknown task {name}")

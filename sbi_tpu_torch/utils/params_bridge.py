@@ -1,0 +1,111 @@
+"""Load ``sbi_tpu`` flow parameters into this package's estimator.
+
+The JAX package's parameters arrive as a nested dict of numpy arrays (for
+example ``jax.tree_util.tree_map(np.asarray, est.params)``); this module
+imports no JAX. Layer names follow flax:
+
+  - ``layers_{i}/Dense_{j}``: ``RQSCoupling``'s conditioner, ``Dense_0``
+    taking ``[x_id, context]`` and the last ``Dense`` the zero-init head;
+  - ``layers_{i}/made/{MaskedDense_j, Dense_0}``: ``MaskedRQSAutoregressive``
+    (``Dense_0`` is the context injection);
+  - ``layers_{i}/{lower, upper, log_diag, bias}``: ``LULinear``.
+
+flax ``Dense`` kernels are (in, out) and torch ``Linear`` weights (out, in),
+so kernels are transposed; the ``MaskedDense`` masks are built from the same
+degrees and stored transposed by the module itself.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..neural_nets.estimators.base import ConditionalEstimator
+from ..neural_nets.estimators.flows import (
+    LULinear,
+    MADENet,
+    MaskedRQSAutoregressive,
+    Permutation,
+    RQSCoupling,
+)
+from .transforms import AffineTransform
+
+
+def _copy(dst: torch.Tensor, src, name: str) -> None:
+    src = torch.as_tensor(np.array(src, dtype=np.float32))
+    if tuple(dst.shape) != tuple(src.shape):
+        raise ValueError(f"{name}: shape {tuple(src.shape)} != expected {tuple(dst.shape)}")
+    dst.copy_(src.to(dst.device))
+
+
+def _load_dense(layer: nn.Linear, p: Mapping, name: str) -> int:
+    _copy(layer.weight, np.asarray(p["kernel"]).T, f"{name}/kernel")
+    _copy(layer.bias, p["bias"], f"{name}/bias")
+    return 2
+
+
+def _load_made(made: MADENet, p: Mapping, name: str) -> int:
+    n = 0
+    for j, layer in enumerate(made.masked):
+        n += _load_dense(layer, p[f"MaskedDense_{j}"], f"{name}/MaskedDense_{j}")
+    if made.context is not None:
+        n += _load_dense(made.context, p["Dense_0"], f"{name}/Dense_0")
+    return n
+
+
+def load_flax_params(
+    estimator: ConditionalEstimator,
+    params: Mapping,
+    input_loc=None,
+    input_scale=None,
+    condition_loc=None,
+    condition_scale=None,
+) -> ConditionalEstimator:
+    """Copy flax flow parameters into ``estimator.net`` (built with the same
+    configuration) and, where given, set its z-scoring transforms to
+    ``AffineTransform(loc, scale)``. Every leaf must be used exactly once.
+    Returns the estimator."""
+    tree = params.get("params", params)
+    leaves = sum(_count_leaves(v) for v in tree.values())
+    used = 0
+    device = estimator.device
+    with torch.no_grad():
+        for i, layer in enumerate(estimator.net.layers):
+            name = f"layers_{i}"
+            if isinstance(layer, Permutation):
+                continue
+            p = tree[name]
+            if isinstance(layer, RQSCoupling):
+                for j, dense in enumerate(layer.dense):
+                    used += _load_dense(dense, p[f"Dense_{j}"], f"{name}/Dense_{j}")
+            elif isinstance(layer, MaskedRQSAutoregressive):
+                used += _load_made(layer.made, p["made"], f"{name}/made")
+            elif isinstance(layer, LULinear):
+                for attr in ("lower", "upper", "log_diag", "bias"):
+                    _copy(getattr(layer, attr), p[attr], f"{name}/{attr}")
+                    used += 1
+            else:
+                raise TypeError(f"{name}: no bridge for {type(layer).__name__}")
+    if used != leaves:
+        raise ValueError(f"bridged {used} of {leaves} parameter leaves")
+    if input_loc is not None:
+        estimator.input_transform = _affine(input_loc, input_scale, device)
+    if condition_loc is not None:
+        estimator.condition_transform = _affine(condition_loc, condition_scale, device)
+    return estimator
+
+
+def _affine(loc, scale, device: Optional[torch.device]) -> AffineTransform:
+    return AffineTransform(
+        torch.as_tensor(np.array(loc, np.float32), device=device),
+        torch.as_tensor(np.array(scale, np.float32), device=device),
+    )
+
+
+def _count_leaves(tree) -> int:
+    if isinstance(tree, Mapping):
+        return sum(_count_leaves(v) for v in tree.values())
+    return 1

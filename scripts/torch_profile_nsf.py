@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Where the time goes in sbi_tpu_torch's NSF serving path, on one GPU.
+
+Builds the SLCP posterior of ``chip_smoke.py`` (5 coupling transforms,
+hidden 50, 10 bins, random weights from ``--seed``), warms it up, then runs
+``DirectPosterior.sample((100_000,))`` and ``log_prob`` of those samples
+under ``torch.profiler``. Prints one JSON line per call: wall time, device
+busy time (sum of kernel times), the device's idle share, the number of
+kernel launches, and the device time of the heaviest kernels by name, the
+RQ-spline kernel's share among them. Needs CUDA; run from the repository
+root:
+
+    python3 scripts/torch_profile_nsf.py
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def profile(torch, fn, top=8):
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    launches = 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[evt.name] = kernels.get(evt.name, 0.0) + evt.device_time_total
+            launches += 1
+    busy_s = sum(kernels.values()) / 1e6
+    spline_s = sum(v for k, v in kernels.items() if "rqs_kernel" in k) / 1e6
+    heaviest = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    return {
+        "wall_s": wall,
+        "device_busy_s": busy_s,
+        "device_idle_share": max(0.0, 1.0 - busy_s / wall),
+        "device_ops": launches,
+        "spline_s": spline_s,
+        "spline_share_of_busy": spline_s / busy_s if busy_s else None,
+        "heaviest": [{"name": k[:80], "s": v / 1e6} for k, v in heaviest],
+    }
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Profile the NSF serving path on one GPU.")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--samples", type=int, default=100_000)
+    args = parser.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_profile_nsf: needs a GPU", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from sbi_tpu_torch.inference.posteriors import DirectPosterior
+    from sbi_tpu_torch.neural_nets import posterior_nn
+    from sbi_tpu_torch.simulators import get_task, slcp_simulator
+    from sbi_tpu_torch.utils.sbiutils import resolve_device
+
+    device = resolve_device(None)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    task = get_task("slcp", device=device)
+    theta = task.prior.sample((10_000,), generator=gen)
+    est = posterior_nn("nsf", device=device, generator=torch.Generator().manual_seed(args.seed))(
+        theta, slcp_simulator(theta, generator=gen))
+    chip_smoke.perturb_heads(torch, est, gen)
+    post = DirectPosterior(est, task.prior)
+    x_o = slcp_simulator(task.prior.sample((1,), generator=gen), generator=gen)
+    post.sample((1000,), x=x_o, generator=gen)  # warm-up
+    post.leakage_correction(x_o, generator=gen)
+
+    samples = None
+
+    def sample():
+        nonlocal samples
+        samples = post.sample((args.samples,), x=x_o, generator=gen)
+
+    def log_prob():
+        with torch.no_grad():
+            post.log_prob(samples, x=x_o)
+
+    for name, fn in (("sample", sample), ("log_prob", log_prob)):
+        fn()  # warm-up of this call's shapes
+        print(json.dumps({"call": name, "samples": args.samples, "device": smi, **profile(torch, fn)}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

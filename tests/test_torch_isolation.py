@@ -1,0 +1,102 @@
+"""sbi_tpu_torch stands alone: it imports no JAX and nothing of sbi_tpu, and
+its entry points run on the GPU unless told otherwise, never falling back
+to the CPU quietly."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sbi_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "sbi_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    return files
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_or_sbi_tpu_imports():
+    offenders = [
+        (str(f.relative_to(ROOT)), mod)
+        for f in _port_files()
+        for mod in _imported_roots(f)
+        if mod in FORBIDDEN
+    ]
+    assert offenders == []
+
+
+def _run(code, cwd=ROOT):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, sbi_tpu_torch\n"
+        "import sbi_tpu_torch.inference, sbi_tpu_torch.neural_nets, "
+        "sbi_tpu_torch.simulators, sbi_tpu_torch.utils.params_bridge\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'sbi_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_default_to_cuda():
+    """device=None means cuda: without CUDA it raises instead of running on
+    the CPU; device='cpu' runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+    from sbi_tpu_torch.neural_nets import posterior_nn
+    from sbi_tpu_torch.neural_nets.net_builders.flow import build_nsf
+    from sbi_tpu_torch.simulators import get_task
+    from sbi_tpu_torch.utils import BoxUniform
+
+    theta = np.random.default_rng(0).normal(size=(50, 3)).astype(np.float32)
+    x = theta + 0.1
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_nsf(theta, x)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        posterior_nn("nsf")(theta, x)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BoxUniform(-np.ones(3), np.ones(3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_task("slcp")
+    est = build_nsf(theta, x, hidden_features=8, num_transforms=1, device="cpu")
+    assert est.device == torch.device("cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        posterior_nn("maf")(theta, x)
+
+
+def test_chip_smoke_refuses_to_run_here(tmp_path):
+    """Without CUDA, or alone in a directory, chip_smoke.py exits non-zero
+    and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    for cwd in (ROOT, tmp_path):
+        out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
