@@ -7,19 +7,22 @@ linear tails as ``rational_quadratic_spline_plain`` below, which is a
 line-for-line port of ``sbi_tpu/neural_nets/estimators/flows.py:91-157``.
 
 What bounds the kernel on the card: memory. Per element it reads
-4 + 4·(3K−1) bytes and writes 8 (128 B at K = 10) against about 60
-transcendental operations. The kernel runs one thread per element and reads
-the element's K widths, K heights and K−1 derivatives straight from its row
-through a row stride, so the widths, heights and derivatives may be strided
-slices of one ``(rows, n, 3K−1)`` conditioner output: the wrapper copies
-nothing and the TPU's (K, N) transpose and 1024-lane padding are gone.
+4 + 4·(3K−1) bytes and writes 8 (128 B at K = 10) against about 2K
+exponentials, two softplus and two logs. A block copies a tile of elements'
+parameters into shared memory with coalesced ``cp.async`` copies (16 B
+pieces where the widths, heights and derivatives are slices of one row, as
+the conditioners give them; a strided tile load otherwise), then each thread
+computes one element from there. The wrapper copies nothing and the TPU's
+(K, N) transpose and 1024-lane padding are gone. K runs from 2 to
+``MAX_BINS``.
 
 ``rational_quadratic_spline`` is the entry point. On a CPU tensor it runs the
-plain version; on a CUDA tensor it launches the kernel or raises. Its
-gradient recomputes through the plain version (as ``_bwd`` in
-``rqs_pallas.py`` takes the VJP of the jnp reference); there is no backward
-kernel. The kernel is built with ``nvcc`` at first use into
-``sbi_tpu_torch/_build/`` and bound with ``ctypes``.
+plain version; on a CUDA tensor it launches the kernel or raises. Where a
+gradient is wanted it goes through an ``autograd.Function`` whose backward
+recomputes through the plain version (as ``_bwd`` in ``rqs_pallas.py``
+takes the VJP of the jnp reference); there is no backward kernel. The kernel
+is built with ``nvcc`` at first use into ``sbi_tpu_torch/_build/`` and
+bound with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 DEFAULT_MIN_BIN_WIDTH = 1e-3
 DEFAULT_MIN_BIN_HEIGHT = 1e-3
 DEFAULT_MIN_DERIVATIVE = 1e-3
+MAX_BINS = 256  # kMaxBins in csrc/rqs.cu
 
 # Kernel launches, by direction. Incremented where the kernel is launched and
 # nowhere else; callers reset them to 0 to count the launches of one run.
@@ -198,53 +202,62 @@ def _library():
 def _launch(x, w, h, d, inverse, tail_bound, mbw, mbh, mdr):
     global forward_launches, inverse_launches
     K = w.shape[-1]
-    x_flat = x.reshape(-1).contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
+    # Outputs in x's shape, so that no view is needed on the way out.
+    y = torch.empty_like(x)
+    ld = torch.empty_like(x)
+    n = x.numel()
+    if n == 0:
+        return y, ld
     # (N, K) views wherever the leading axes merge, as the conditioner's
     # slices do; unit stride along the bins is checked by _check.
     w2, h2, d2 = w.reshape(-1, K), h.reshape(-1, K), d.reshape(-1, K - 1)
-    n = x_flat.numel()
-    y = torch.empty_like(x_flat)
-    ld = torch.empty_like(x_flat)
-    if n == 0:
-        return y.reshape(x.shape), ld.reshape(x.shape)
-    fn = _library().sbi_rqs_spline
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            x_flat.data_ptr(), w2.data_ptr(), h2.data_ptr(), d2.data_ptr(),
+    fn = (_lib or _library()).sbi_rqs_spline
+    index = x.get_device()
+    args = (x.data_ptr(), w2.data_ptr(), h2.data_ptr(), d2.data_ptr(),
             y.data_ptr(), ld.data_ptr(), n, w2.stride(0), h2.stride(0),
-            d2.stride(0), K, int(inverse), tail_bound, mbw, mbh, mdr, stream,
-        )
+            d2.stride(0), K, inverse, tail_bound, mbw, mbh, mdr)
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"rqs kernel launch failed: CUDA error {err}")
     if inverse:
         inverse_launches += 1
     else:
         forward_launches += 1
-    return y.reshape(x.shape), ld.reshape(x.shape)
+    return y, ld
 
 
 def _check(x, w, h, d):
-    K = w.shape[-1]
-    if K < 2:
-        raise ValueError(f"num_bins must be >= 2, got {K}")
-    for name, t, shape in (
-        ("widths", w, x.shape + (K,)),
-        ("heights", h, x.shape + (K,)),
-        ("derivatives", d, x.shape + (K - 1,)),
-    ):
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(
-                f"{name} shape {tuple(t.shape)} != expected {tuple(shape)}"
-            )
-    for t in (x, w, h, d):
-        if t.dtype != torch.float32:
-            raise TypeError(f"spline needs float32 tensors, got {t.dtype}")
-        if t.device != x.device:
-            raise ValueError("spline tensors must lie on one device")
-    for t in (w, h, d):
-        if t.stride(-1) != 1:
-            raise ValueError("spline parameters must be contiguous along the bins")
+    ws, ds = w.shape, d.shape
+    K = ws[-1]
+    if not 2 <= K <= MAX_BINS:
+        raise ValueError(f"num_bins must be in [2, {MAX_BINS}], got {K}")
+    if h.shape != ws or ws[:-1] != x.shape or ds[:-1] != x.shape or ds[-1] != K - 1:
+        raise ValueError(
+            f"spline shapes: widths {tuple(ws)}, heights {tuple(h.shape)}, derivatives "
+            f"{tuple(ds)}; expected {tuple(x.shape) + (K,)} twice and {tuple(x.shape) + (K - 1,)}"
+        )
+    f32 = torch.float32
+    if x.dtype != f32 or w.dtype != f32 or h.dtype != f32 or d.dtype != f32:
+        raise TypeError(f"spline needs float32 tensors, got {x.dtype}, {w.dtype}, {h.dtype}, {d.dtype}")
+    dev = x.device
+    if w.device != dev or h.device != dev or d.device != dev:
+        raise ValueError("spline tensors must lie on one device")
+    if w.stride(-1) != 1 or h.stride(-1) != 1 or d.stride(-1) != 1:
+        raise ValueError("spline parameters must be contiguous along the bins")
+
+
+def _forward(x, w, h, d, inverse, tail_bound, mbw, mbh, mdr):
+    if x.is_cuda:
+        return _launch(x, w, h, d, inverse, tail_bound, mbw, mbh, mdr)
+    if x.device.type != "cpu":
+        raise ValueError(f"no spline kernel for device {x.device}")
+    return rational_quadratic_spline_plain(x, w, h, d, inverse, tail_bound, mbw, mbh, mdr)
 
 
 class _RQSpline(torch.autograd.Function):
@@ -252,13 +265,7 @@ class _RQSpline(torch.autograd.Function):
     def forward(ctx, x, w, h, d, inverse, tail_bound, mbw, mbh, mdr):
         ctx.save_for_backward(x, w, h, d)
         ctx.consts = (inverse, tail_bound, mbw, mbh, mdr)
-        if x.device.type == "cuda":
-            return _launch(x, w, h, d, inverse, tail_bound, mbw, mbh, mdr)
-        if x.device.type != "cpu":
-            raise ValueError(f"no spline kernel for device {x.device}")
-        return rational_quadratic_spline_plain(
-            x, w, h, d, inverse, tail_bound, mbw, mbh, mdr
-        )
+        return _forward(x, w, h, d, inverse, tail_bound, mbw, mbh, mdr)
 
     @staticmethod
     def backward(ctx, grad_y, grad_ld):
@@ -285,12 +292,16 @@ def rational_quadratic_spline(
 
     A CUDA tensor goes through the kernel (one launch for all leading axes),
     a CPU tensor through the plain version. float32 only; the parameters
-    must have unit stride along the bins.
+    must have unit stride along the bins; 2 <= K <= ``MAX_BINS``. Without a
+    gradient to record (``no_grad``, or no input that requires one) the
+    ``autograd.Function`` is skipped.
     """
-    _check(inputs, unnormalized_widths, unnormalized_heights,
-           unnormalized_derivatives)
-    return _RQSpline.apply(
-        inputs, unnormalized_widths, unnormalized_heights,
-        unnormalized_derivatives, bool(inverse), float(tail_bound),
-        float(min_bin_width), float(min_bin_height), float(min_derivative),
-    )
+    x, w, h, d = inputs, unnormalized_widths, unnormalized_heights, unnormalized_derivatives
+    _check(x, w, h, d)
+    consts = (bool(inverse), float(tail_bound), float(min_bin_width),
+              float(min_bin_height), float(min_derivative))
+    if torch.is_grad_enabled() and (
+        x.requires_grad or w.requires_grad or h.requires_grad or d.requires_grad
+    ):
+        return _RQSpline.apply(x, w, h, d, *consts)
+    return _forward(x, w, h, d, *consts)

@@ -132,3 +132,50 @@ def test_wrapper_rejects_bad_inputs():
         rqs.rational_quadratic_spline(x, wt.transpose(-1, -2).contiguous().transpose(-1, -2), h, d)
     with pytest.raises(ValueError, match="num_bins"):
         rqs.rational_quadratic_spline(x, w[..., :1], h[..., :1], d[..., :0])
+    with pytest.raises(ValueError, match="one device"):
+        rqs.rational_quadratic_spline(x, w.to("meta"), h, d)
+    with pytest.raises(TypeError):
+        rqs.rational_quadratic_spline(x, w, h.double(), d)
+    with pytest.raises(ValueError, match="shape"):
+        rqs.rational_quadratic_spline(x, w, h[..., :-1], d)
+    with pytest.raises(ValueError, match="shape"):
+        rqs.rational_quadratic_spline(x[:-1], w, h, d)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_no_grad_path_equals_grad_path(inverse):
+    """Without a gradient to record the wrapper skips the autograd.Function;
+    both paths give the same values, and only the second records a graph."""
+    x, w, h, d = _inputs(10, seed=5)
+    with torch.no_grad():
+        y0, ld0 = rqs.rational_quadratic_spline(*_torch(x, w, h, d), inverse, B)
+    y1, ld1 = rqs.rational_quadratic_spline(*_torch(x, w, h, d), inverse, B)  # no input requires grad
+    leaves = _torch(x, w, h, d, grad=True)
+    y2, ld2 = rqs.rational_quadratic_spline(*leaves, inverse, B)
+    assert y0.grad_fn is None and y1.grad_fn is None and y2.grad_fn is not None
+    for a, b in ((y0, y2), (ld0, ld2), (y1, y2), (ld1, ld2)):
+        torch.testing.assert_close(a, b.detach(), rtol=0, atol=0)
+
+
+def test_largest_bin_count_and_beyond():
+    """K = MAX_BINS runs (on the CPU, the plain version); one more raises."""
+    K = rqs.MAX_BINS
+    x, w, h, d = _torch(*_inputs(K, rows=4, cols=2, seed=6))
+    y, ld = rqs.rational_quadratic_spline(x, w, h, d)
+    assert torch.isfinite(y).all() and torch.isfinite(ld).all()
+    pad = torch.zeros(4, 2, 1)
+    with pytest.raises(ValueError, match="num_bins"):
+        rqs.rational_quadratic_spline(x, torch.cat([w, pad], -1), torch.cat([h, pad], -1),
+                                      torch.cat([d, pad], -1))
+
+
+def test_grad_path_cpu_launches_nothing():
+    """With inputs that require gradients the wrapper goes through the
+    autograd.Function; on the CPU that runs the plain version, forward and
+    backward, and launches nothing."""
+    rqs.forward_launches = rqs.inverse_launches = 0
+    for inverse in (False, True):
+        leaves = _torch(*_inputs(10, seed=8), grad=True)
+        _loss(*rqs.rational_quadratic_spline(*leaves, inverse)).backward()
+        assert all(leaf.grad is not None for leaf in leaves)
+    assert (rqs.forward_launches, rqs.inverse_launches) == (0, 0)
