@@ -5,18 +5,30 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the RQ-spline CUDA kernel from ``sbi_tpu_torch/csrc/rqs.cu``,
-holds it against its plain PyTorch version in both directions (values and
-gradients, edge cases included), then drives the NSF serving path through
-the port's public entry points: an SLCP posterior at full width (5 coupling
-transforms, hidden 50, 10 bins) that answers ``sample``, ``log_prob``,
-``sample_batched`` and ``leakage_correction``, and a two_moons posterior
-(autoregressive branch). Weights are random, from ``--seed``; each head is
-perturbed so the splines are far from the identity. Every phase prints one
-JSON line; any failure raises and the script exits non-zero. The kernel
-launch counters are zeroed just before the main path and read just after,
-and the path fails unless every kernel was launched. The last two lines are
-the ``kernels`` summary and ``{"ok": true, "device": {...}}``.
+It builds the RQ-spline CUDA kernels (the spline in both directions and its
+backward) from ``sbi_tpu_torch/csrc/rqs.cu`` and holds them against their
+plain PyTorch versions: values against ``rational_quadratic_spline_plain``,
+gradients against autograd through it, edge cases included, and a stress
+case against float64. Then it drives the port's main path through its
+public entry points:
+
+- serving: an SLCP posterior at full width (5 coupling transforms, hidden
+  50, 10 bins) that answers ``sample``, ``log_prob``, ``sample_batched``
+  and ``leakage_correction``, and a two_moons posterior (autoregressive
+  branch); weights random, from ``--seed``, each head perturbed so the
+  splines are far from the identity;
+- training: SLCP NPE at full width on 10,000 simulations for a few epochs
+  (steps/s, the device-busy share of a step and the spline kernels' share
+  of it), two_moons NPE trained to early stopping and scored by C2ST
+  against the reference posteriors in ``tests/mini_sbibm/files``, and a
+  2-round SNPE-C run on two_moons, and the four-line recipe with its
+  defaults (a MAF, on cuda).
+
+Every phase prints one JSON line; any failure raises and the script exits
+non-zero. The kernel launch counters are zeroed just before the main path
+and read just after, and the path fails unless every kernel was launched.
+The last two lines are the ``kernels`` summary and ``{"ok": true,
+"device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -26,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -34,6 +47,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 REPLACES = "sbi_tpu/ops/rqs_pallas.py:137"
+# The backward replaces _bwd, the jax.vjp of the jnp reference (XLA, not
+# Pallas) that the TPU kernel's custom_vjp takes its gradients from.
+REPLACES_BACKWARD = "sbi_tpu/ops/rqs_pallas.py:229"
 SOURCE = "sbi_tpu_torch/csrc/rqs.cu"
 # Tolerances of kernel vs plain version, at spline parameters of std 0.3
 # (wider than the main path's conditioners give). Both compute in float32;
@@ -54,15 +70,34 @@ STRESS_FACTOR = 4.0
 # (2.3e-4 between kernel and plain at K = 64, std 0.3). Those cases are
 # held to float64 as the stress case is.
 LARGE_K = 64
-# Gradients recompute through the plain version in both cases; they differ
-# only through the upstream gradient 2*y, which carries y's error.
-GRAD_ATOL, GRAD_RTOL = 1e-4, 1e-4
+# Backward kernel vs autograd through the plain version, same inputs and
+# fixed random upstream gradients, at PARAM_STD. d log|det| / dx is a
+# difference of terms of order 10 (the spline's second derivative over its
+# first), so float32 rounding of the knots leaves ~1e-4 absolute there;
+# large gradients (up to ~100) differ by ~5e-5 relative.
+GRAD_ATOL, GRAD_RTOL = 1e-3, 1e-4
+# The gradient of log|det| jumps across a knot (the spline is C1, not C2),
+# and two float32 versions' knots differ by a few ulp, so at an input that
+# close to a knot they may take neighbouring bins. Elements within KNOT_GAP
+# of a knot (float32 plain knots; float64 ones where held to float64) are
+# held to finiteness only, and counted.
+KNOT_GAP = 1e-4
+# Where gradients are held to float64 (the stress case, K >= LARGE_K), the
+# rule of STRESS_FACTOR applies at this quantile of each gradient's errors.
+GRAD_QUANTILE = 0.999
 ROUND_TRIP_ATOL = 1e-3  # noise -> data -> noise through 5 spline layers
 SAMPLE_LP_ATOL = 1e-3  # single-pass sample_and_log_prob vs log_prob
 # Kernel timing sizes, (conditioner rows, transformed dims) at K = 10: one
 # 10,000-row proposal batch of two_moons (2) and of SLCP's couplings (3),
 # and a 100,000-row log_prob of SLCP.
 TIMING_SIZES = ((10_000, 2), (10_000, 3), (100_000, 3))
+# The backward's sizes: a training batch of SLCP's couplings (200 x 3), an
+# atomic-loss batch of two_moons (200 rows x 10 atoms x 2), and the
+# 100,000 x 3 of the forward's largest size.
+BACKWARD_SIZES = ((200, 3), (2_000, 2), (100_000, 3))
+# two_moons C2ST bar after NPE-NSF on 10,000 simulations (sbi_tpu read
+# 0.5319 mean there, bm_results_round2.csv, with sklearn's C2ST).
+C2ST_MEAN_MAX, C2ST_EACH_MAX = 0.60, 0.65
 FLUSH_BYTES = 2 * 50 * 10**6  # twice the 50 MB L2, written before a cold call
 
 
@@ -126,25 +161,112 @@ def within_float64(torch, rqs, x, w, h, d, inverse, tail_bound=3.0):
     return ok, errs
 
 
+def spline_grads(torch, fn, x, w, h, d, gy, gl, inverse, tail_bound, consts):
+    """Gradients of (x, w, h, d) under upstream (gy, gl), through ``fn``.
+    The leaves alias the inputs' storage with their strides, so slices of
+    one row stay slices of one row."""
+    leaves = [t.detach().requires_grad_(True) for t in (x, w, h, d)]
+    y, ld = fn(*leaves, inverse, tail_bound, *consts)
+    return torch.autograd.grad((y, ld), leaves, (gy, gl))
+
+
+def near_knot(torch, rqs, x, w, h, inverse, tail_bound, consts, dtype):
+    """Elements within KNOT_GAP of a knot of the plain version, computed in
+    ``dtype``: width knots forward, height knots inverse."""
+    min_bin = consts[1] if inverse else consts[0]
+    _, knots = rqs._knots((h if inverse else w).to(dtype), min_bin, tail_bound)
+    return (knots - x.to(dtype)[..., None]).abs().amin(-1) < KNOT_GAP
+
+
+def _grad_errors(torch, got, want, far, quantile=None):
+    """|got - want| per gradient over the elements ``far`` from a knot: the
+    max, or the given quantile."""
+    errs = {}
+    for name, a, b in zip("xwhd", got, want):
+        keep = far if a.dim() == far.dim() else far[..., None].expand_as(a)
+        err = (a.double()[keep] - b.double()[keep]).abs()
+        if err.numel() == 0:
+            errs[name] = 0.0
+        elif quantile is None:
+            errs[name] = float(err.max())
+        else:  # torch.quantile takes at most 2^24 elements
+            errs[name] = float(torch.quantile(err[: 1 << 24], quantile))
+    return errs
+
+
+def grad_compare(torch, rqs, x, w, h, d, inverse, tail_bound, consts, gen):
+    """Backward kernel vs autograd through the float32 plain version, within
+    GRAD_ATOL + GRAD_RTOL |g| away from knots, finite everywhere."""
+    gy = torch.randn(x.shape, generator=gen, device=x.device)
+    gl = torch.randn(x.shape, generator=gen, device=x.device)
+    got = spline_grads(torch, rqs.rational_quadratic_spline, x, w, h, d, gy, gl, inverse, tail_bound, consts)
+    want = spline_grads(torch, rqs.rational_quadratic_spline_plain, x, w, h, d, gy, gl, inverse,
+                        tail_bound, consts)
+    far = ~near_knot(torch, rqs, x, w, h, inverse, tail_bound, consts, torch.float32)
+    ok = all(bool(torch.isfinite(a).all()) for a in got)
+    for a, b in zip(got, want):
+        keep = far if a.dim() == far.dim() else far[..., None].expand_as(a)
+        ok = ok and bool(torch.allclose(a[keep], b[keep], atol=GRAD_ATOL, rtol=GRAD_RTOL))
+    return ok, _grad_errors(torch, got, want, far), int((~far).sum())
+
+
+def grads_within_float64(torch, rqs, x, w, h, d, inverse, tail_bound, consts, gen):
+    """Backward kernel and float32 autograd through the plain version, each
+    against autograd through the plain version in float64, away from the
+    float64 knots: per gradient, the kernel's error at the GRAD_QUANTILE of
+    elements may be at most STRESS_FACTOR times the float32 plain version's
+    own (+ 1e-7). The max errors are reported, not held: they sit at a few
+    ill-conditioned elements (gradients of 1e3-1e4 next to a knot), where
+    either float32 version may be the worse by several times."""
+    gy = torch.randn(x.shape, generator=gen, device=x.device)
+    gl = torch.randn(x.shape, generator=gen, device=x.device)
+    args = (gy, gl, inverse, tail_bound, consts)
+    got = spline_grads(torch, rqs.rational_quadratic_spline, x, w, h, d, *args)
+    plain = spline_grads(torch, rqs.rational_quadratic_spline_plain, x, w, h, d, *args)
+    exact = spline_grads(torch, rqs.rational_quadratic_spline_plain,
+                         *(t.double() for t in (x, w, h, d, gy, gl)), inverse, tail_bound, consts)
+    far = ~near_knot(torch, rqs, x, w, h, inverse, tail_bound, consts, torch.float64)
+    kernel, own = _grad_errors(torch, got, exact, far), _grad_errors(torch, plain, exact, far)
+    q_kernel = _grad_errors(torch, got, exact, far, GRAD_QUANTILE)
+    q_own = _grad_errors(torch, plain, exact, far, GRAD_QUANTILE)
+    ok = all(bool(torch.isfinite(a).all()) for a in got) and all(
+        q_kernel[k] <= STRESS_FACTOR * q_own[k] + 1e-7 for k in q_kernel)
+    return ok, {"kernel": kernel, "plain": own, f"kernel_q{GRAD_QUANTILE}": q_kernel,
+                f"plain_q{GRAD_QUANTILE}": q_own}, int((~far).sum())
+
+
 def kernel_checks(torch, rqs, device, n_main, seed):
     gen = torch.Generator(device=device).manual_seed(seed)
+    grad_gen = torch.Generator(device=device).manual_seed(seed + 5)  # upstream gradients
     B = 3.0
     results = []
 
     def run(name, x, w, h, d, inverse, consts=None):
+        consts = consts or (rqs.DEFAULT_MIN_BIN_WIDTH, rqs.DEFAULT_MIN_BIN_HEIGHT,
+                            rqs.DEFAULT_MIN_DERIVATIVE)
+        large = w.shape[-1] >= LARGE_K
         ok, ey, eld = compare(torch, rqs, x, w, h, d, inverse, B, consts)
-        if w.shape[-1] >= LARGE_K:
+        if large:
             ok, _ = within_float64(torch, rqs, x, w, h, d, inverse, B)
+        held = grads_within_float64 if large else grad_compare
+        grad_ok, grad_err, near = held(torch, rqs, x, w, h, d, inverse, B, consts, grad_gen)
         results.append({"case": name, "inverse": inverse, "n": int(x.numel()),
                         "K": int(w.shape[-1]), "max_abs_err_y": ey,
-                        "max_abs_err_ld": eld, "ok": ok})
+                        "max_abs_err_ld": eld, "ok": ok, "grad_max_abs_err": grad_err,
+                        "grad_near_knot": near, "grad_ok": grad_ok})
         check(ok, f"kernel != plain in case {name} (inverse={inverse}): "
                   f"y err {ey}, ld err {eld}")
+        check(grad_ok, f"backward kernel != plain in case {name} (inverse={inverse}): {grad_err}")
         # The large-K cases, held to float64, stay out of the summary's
-        # max_abs_err, which is against the plain version at Y_ATOL/LD_ATOL.
-        return max(ey, eld) if w.shape[-1] < LARGE_K else 0.0
+        # max_abs_err, which is against the plain version at the tolerances.
+        if large:
+            return 0.0
+        backward_worst[0] = max(backward_worst[0], *grad_err.values())
+        return max(ey, eld)
 
     worst = {False: 0.0, True: 0.0}
+    backward_worst = [0.0]
+    launches = (rqs.forward_launches, rqs.inverse_launches, rqs.backward_launches)
     for inverse in (False, True):
         x, w, h, d = spline_inputs(torch, n_main, 10, device, gen)
         worst[inverse] = max(worst[inverse], run("main_strided", x, w, h, d, inverse))
@@ -184,39 +306,30 @@ def kernel_checks(torch, rqs, device, n_main, seed):
                 xk, wk, hk, dk = spline_inputs(torch, n, K, device, gen, strided=strided)
                 name = f"K={K}_{'one_span' if strided else 'separate'}"
                 worst[inverse] = max(worst[inverse], run(name, xk, wk, hk, dk, inverse))
-    return results, worst
+    # Check launches are not launches of the main path.
+    rqs.forward_launches, rqs.inverse_launches, rqs.backward_launches = launches
+    return results, worst, backward_worst[0]
 
 
 def stress_check(torch, rqs, device, n, seed):
-    """Parameters of std 1: kernel and float32 plain version, each against
-    the plain version in float64."""
+    """Parameters of std 1: kernels and the float32 plain version, each
+    against the plain version in float64 (values, and gradients away from
+    the knots)."""
     gen = torch.Generator(device=device).manual_seed(seed + 3)
+    consts = (rqs.DEFAULT_MIN_BIN_WIDTH, rqs.DEFAULT_MIN_BIN_HEIGHT, rqs.DEFAULT_MIN_DERIVATIVE)
+    launches = (rqs.forward_launches, rqs.inverse_launches, rqs.backward_launches)
     out = {}
     for inverse in (False, True):
         x, w, h, d = spline_inputs(torch, n, 10, device, gen, std=1.0)
         ok, errs = within_float64(torch, rqs, x, w, h, d, inverse)
         check(ok, f"stress (inverse={inverse}): kernel error vs float64 above "
                   f"{STRESS_FACTOR} x the plain version's: {errs}")
-        out["inverse" if inverse else "forward"] = errs
-    return out
-
-
-def gradient_check(torch, rqs, device, n, seed):
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
-    out = {}
-    for inverse in (False, True):
-        x, w, h, d = spline_inputs(torch, n, 10, device, gen, strided=False)
-        grads = []
-        for fn in (rqs.rational_quadratic_spline, rqs.rational_quadratic_spline_plain):
-            leaves = [t.clone().requires_grad_(True) for t in (x, w, h, d)]
-            y, ld = fn(*leaves, inverse, 3.0)
-            ((y**2).sum() + ld.sum()).backward()
-            grads.append([t.grad for t in leaves])
-        errs = [float((a - b).abs().max()) for a, b in zip(*grads)]
-        ok = all(bool(torch.allclose(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL))
-                 for a, b in zip(*grads))
-        check(ok, f"gradients differ (inverse={inverse}): {errs}")
-        out["inverse" if inverse else "forward"] = dict(zip(("x", "w", "h", "d"), errs))
+        grad_ok, grad_errs, near = grads_within_float64(torch, rqs, x, w, h, d, inverse, 3.0, consts, gen)
+        check(grad_ok, f"stress (inverse={inverse}): backward kernel error vs float64 above "
+                       f"{STRESS_FACTOR} x the plain version's: {grad_errs}")
+        out["inverse" if inverse else "forward"] = {**errs, "gradients": grad_errs,
+                                                    "grad_near_knot": near}
+    rqs.forward_launches, rqs.inverse_launches, rqs.backward_launches = launches
     return out
 
 
@@ -249,10 +362,12 @@ def time_ms(torch, fn, iters=100, warmup=10, before=None):
 
 
 def device_ms(torch, fn, iters=20, warmup=3, before=None, match=None):
-    """Device time per call: the summed time of the device operations one
-    call launches (torch.profiler), averaged over ``iters`` calls. With
-    ``match``, only operations whose name contains it count; ``before``
-    (an L2 flush) runs before each call and is not counted then."""
+    """Device time per call, by torch.profiler, over ``iters`` calls. With
+    ``match``, each call launches exactly one operation whose name contains
+    it (a kernel, or a library call's kernel) and the result is the mean
+    time of those operations; else it is the summed time of all device
+    operations per call. ``before`` (an L2 flush) runs before each call and
+    is not counted then."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -267,10 +382,14 @@ def device_ms(torch, fn, iters=20, warmup=3, before=None, match=None):
             torch.cuda.synchronize()
         ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                and (match is None or match in e.name)]
-        # Every call launches the same operations, so a count that is not
-        # a multiple of the calls means some were dropped.
-        if ops and len(ops) % iters == 0:
-            return sum(e.device_time_total for e in ops) / iters / 1e3
+        total = sum(e.device_time_total for e in ops)
+        # A dropped event leaves a mean of one kernel per call unbiased, but
+        # not a sum over a call's kernels: there, a count that is not a
+        # multiple of the calls means some were dropped.
+        if match is not None and iters // 2 <= len(ops) <= iters:
+            return total / len(ops) / 1e3
+        if match is None and ops and len(ops) % iters == 0:
+            return total / iters / 1e3
     check(False, "the profiler lost device operations in three sessions")
 
 
@@ -325,6 +444,57 @@ def kernel_timings(torch, rqs, device, seed):
             out[inverse] = t
     # Timing launches are not launches of the main path.
     rqs.forward_launches, rqs.inverse_launches = fwd, inv
+    return out
+
+
+def backward_bound_ms(n, K):
+    """Least time for the spline's backward on n elements: bytes (x, 3K-1
+    parameters and the two upstream gradients in; 3K gradients out;
+    float32) over HBM bandwidth vs float32 operations (about 41K+120 per
+    element: the forward's 25K+40, the softmax adjoints' ~16K and ~80 for
+    the reverse of the chosen bin) over the float32 peak."""
+    bytes_moved = n * 4 * ((1 + (3 * K - 1) + 2) + 3 * K)
+    ops = n * (41 * K + 120)
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def backward_timings(torch, rqs, device, seed):
+    """The backward kernel alone at ``BACKWARD_SIZES`` (K = 10, the forward
+    direction's gradient, as training runs it), warm and cold L2, and its
+    plain version (``rational_quadratic_spline_vjp_plain``) at each size.
+    The n = 300,000 figures also stand under ``ms`` and ``plain_ms``."""
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    flush_buf = torch.empty(FLUSH_BYTES // 4, device=device)
+    flush = lambda: flush_buf.fill_(1.0)
+    consts = (3.0, rqs.DEFAULT_MIN_BIN_WIDTH, rqs.DEFAULT_MIN_BIN_HEIGHT, rqs.DEFAULT_MIN_DERIVATIVE)
+    launches = rqs.backward_launches
+    out = {"K": 10, "sizes": {}}
+    with torch.no_grad():
+        for rows, dims in BACKWARD_SIZES:
+            p = PARAM_STD * torch.randn(rows, dims, 29, generator=gen, device=device)
+            x = 1.5 * torch.randn(rows, dims, generator=gen, device=device)
+            gy = torch.randn(rows, dims, generator=gen, device=device)
+            gl = torch.randn(rows, dims, generator=gen, device=device)
+            args = (x, p[..., :10], p[..., 10:20], p[..., 20:], gy, gl)
+            call = lambda: rqs._launch_backward(*args, (True,) * 4, False, *consts)
+            plain = lambda: rqs.rational_quadratic_spline_vjp_plain(*args, False, *consts)
+            n = rows * dims
+            bound, by = backward_bound_ms(n, 10)
+            out["sizes"][str(n)] = {
+                "bound_ms": bound, "bound_by": by,
+                "warm": {"device_ms": device_ms(torch, call, match="rqs_backward"),
+                         "time_ms": time_ms(torch, call)},
+                "cold": {"device_ms": device_ms(torch, call, before=flush, match="rqs_backward"),
+                         "time_ms": time_ms(torch, call, before=flush)},
+                "plain_ms": device_ms(torch, plain), "plain_call_ms": time_ms(torch, plain),
+            }
+    n = max(r * c for r, c in BACKWARD_SIZES)
+    big = out["sizes"][str(n)]
+    out.update(n=n, bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+               ms=big["warm"]["device_ms"], plain_ms=big["plain_ms"])
+    rqs.backward_launches = launches  # timing launches are not the main path's
     return out
 
 
@@ -488,6 +658,195 @@ def two_moons_path(torch, rqs, device, seed, num_sims=10_000, num_samples=10_000
          sample_log_prob_max_err=lp_err)
 
 
+def spline_layers(net):
+    return sum(1 for l in net.layers if type(l).__name__ in ("RQSCoupling", "MaskedRQSAutoregressive"))
+
+
+def profile_shares(torch, fn):
+    """Run ``fn`` under torch.profiler: wall seconds, device-busy seconds
+    (summed device time of its kernels) and the spline kernels' device
+    seconds, forward and backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Device operations; a user annotation (such as the optimizer's step
+    # range) is reported as a device event too, and is no work of its own.
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.device_time_total for e in ops) / 1e6
+    bwd = sum(e.device_time_total for e in ops if "rqs_backward_kernel" in e.name) / 1e6
+    fwd = sum(e.device_time_total for e in ops if "rqs_kernel" in e.name) / 1e6
+    return wall, busy, fwd, bwd, len(ops)
+
+
+def slcp_training(torch, rqs, device, seed, num_sims=10_000, epochs=4):
+    """SLCP NPE at full width: a warm-up epoch that builds the NSF, then
+    ``epochs`` epochs timed and one profiled; the loss must be finite and
+    fall, and every spline of every forward and backward pass must go
+    through the kernels."""
+    import warnings
+
+    from sbi_tpu_torch.inference import NPE
+    from sbi_tpu_torch.simulators import get_task, slcp_simulator
+
+    gen = torch.Generator(device=device).manual_seed(seed + 20)
+    task = get_task("slcp", device=device)
+    theta = task.prior.sample((num_sims,), generator=gen)
+    x = slcp_simulator(theta, generator=gen)
+    inference = NPE(prior=task.prior, density_estimator="nsf")
+    inference.append_simulations(theta, x)
+    f0, b0 = rqs.forward_launches, rqs.backward_launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "Maximum number of epochs reached"
+        inference.train(max_num_epochs=1, generator=gen)  # warm-up; builds the net
+        net = inference._neural_net.net
+        passes = count_calls(net, "log_prob")
+        steps0 = inference._opt_steps
+        _, t_train = sync_time(torch, lambda: inference.train(
+            max_num_epochs=epochs, resume_training=True, generator=gen))
+        steps = inference._opt_steps - steps0
+        wall, busy, fwd_s, bwd_s, n_ops = profile_shares(torch, lambda: inference.train(
+            max_num_epochs=1, resume_training=True, generator=gen))
+    n_spline = spline_layers(net)
+    all_steps = inference._opt_steps
+    epochs_run = len(inference.summary["training_loss"])
+    # Every step is one forward and one backward pass, every epoch one
+    # validation pass more (the warm-up's passes ran before the count).
+    check(passes[0] == all_steps - steps0 + epochs_run - 1,
+          f"{passes[0]} flow passes for {all_steps - steps0} steps")
+    check(rqs.forward_launches - f0 == n_spline * (all_steps + epochs_run),
+          f"{rqs.forward_launches - f0} forward launches for {all_steps} steps, {epochs_run} epochs")
+    check(rqs.backward_launches - b0 == n_spline * all_steps,
+          f"{rqs.backward_launches - b0} backward launches for {all_steps} steps")
+    losses = inference.summary["training_loss"]
+    val = inference.summary["validation_loss"]
+    check(all(math.isfinite(v) for v in losses + val), f"non-finite loss {losses} {val}")
+    check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
+    emit("slcp_training", params=sum(p.numel() for p in net.parameters()), spline_layers=n_spline,
+         simulations=num_sims, batch=200, steps_per_epoch=steps // epochs, epochs_timed=epochs,
+         train_s=t_train, steps_per_s=steps / t_train, training_loss=losses, validation_loss=val,
+         profiled_epoch={"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+                         "device_ops": n_ops, "spline_forward_s": fwd_s,
+                         "spline_backward_s": bwd_s, "spline_forward_share_of_busy": fwd_s / busy,
+                         "spline_backward_share_of_busy": bwd_s / busy},
+         forward_launches=rqs.forward_launches - f0, backward_launches=rqs.backward_launches - b0)
+
+
+def reference_posteriors(task_name):
+    """Observations and reference posterior samples of ``task_name`` from
+    the repository's fixtures, read with numpy."""
+    import numpy as np
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "mini_sbibm",
+                        "files", f"{task_name}.npz")
+    with np.load(path) as f:
+        return f["observations"], f["reference_samples"]
+
+
+def two_moons_training(torch, rqs, device, seed, num_sims=10_000, max_epochs=90):
+    """two_moons NPE-NSF on ``num_sims`` simulations trained to early
+    stopping (at most ``max_epochs``), then C2ST against the reference
+    posterior of each fixture observation."""
+    import warnings
+
+    from sbi_tpu_torch.inference import NPE, simulate_for_sbi
+    from sbi_tpu_torch.simulators import get_task
+    from sbi_tpu_torch.utils import c2st_torch
+
+    gen = torch.Generator(device=device).manual_seed(seed + 30)
+    task = get_task("two_moons", device=device)
+    theta, x = simulate_for_sbi(task.simulator, task.prior, num_sims, generator=gen)
+    inference = NPE(prior=task.prior, density_estimator="nsf")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, t_train = sync_time(torch, lambda: inference.append_simulations(theta, x).train(
+            max_num_epochs=max_epochs, generator=gen))
+    posterior = inference.build_posterior()
+    observations, references = reference_posteriors("two_moons")
+    scores = []
+    for x_o, ref in zip(observations, references):
+        samples = posterior.sample((ref.shape[0],), x=torch.as_tensor(x_o, device=device), generator=gen)
+        check(bool(torch.isfinite(samples).all()), "non-finite posterior sample")
+        scores.append(float(c2st_torch(samples, torch.as_tensor(ref, device=device), generator=gen)))
+    mean = sum(scores) / len(scores)
+    epochs = inference.summary["epochs_trained"][-1]
+    emit("two_moons_training", simulations=num_sims, epochs=epochs, max_epochs=max_epochs,
+         early_stopped=epochs < max_epochs, train_s=t_train,
+         steps_per_s=inference._opt_steps / t_train,
+         best_validation_loss=inference.summary["best_validation_loss"][-1],
+         c2st=scores, c2st_mean=mean, c2st_bar={"mean": C2ST_MEAN_MAX, "each": C2ST_EACH_MAX})
+    check(mean <= C2ST_MEAN_MAX and max(scores) <= C2ST_EACH_MAX, f"two_moons C2ST {scores}")
+
+
+def maf_canonical(torch, device, seed, num_sims=2_000, epochs=5):
+    """The four-line recipe with its defaults: ``NPE(prior=prior)`` trains
+    a MAF on cuda (device=None); its posterior samples inside the prior."""
+    import warnings
+
+    from sbi_tpu_torch.inference import NPE, simulate_for_sbi
+    from sbi_tpu_torch.simulators import get_task
+
+    gen = torch.Generator(device=device).manual_seed(seed + 50)
+    task = get_task("two_moons", device=device)
+    theta, x = simulate_for_sbi(task.simulator, task.prior, num_sims, generator=gen)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        inference = NPE(prior=task.prior)
+        _, t = sync_time(torch, lambda: inference.append_simulations(theta, x).train(
+            max_num_epochs=epochs, generator=gen))
+    posterior = inference.build_posterior()
+    samples = posterior.sample((1_000,), x=torch.zeros(2, device=device), generator=gen)
+    losses = inference.summary["training_loss"]
+    check(type(inference._neural_net.net.layers[0]).__name__ == "MaskedAffineAutoregressive",
+          "NPE(prior) did not build a MAF")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], f"MAF losses {losses}")
+    check(bool(task.prior.within_support(samples).all()), "MAF sample outside the prior")
+    emit("maf_canonical", simulations=num_sims, epochs=epochs, train_s=t, training_loss=losses,
+         device=str(inference._device))
+
+
+def snpe_two_rounds(torch, rqs, device, seed, num_sims=2_000, epochs=(30, 10)):
+    """Two rounds of SNPE-C on two_moons: round 2 draws from the round-1
+    posterior at x_o (the inverse kernel) and trains on the atomic loss
+    (10 atoms: forward and backward at 200 x 10 x 2 = 4,000 elements)."""
+    import warnings
+
+    from sbi_tpu_torch.inference import SNPE_C, simulate_for_sbi
+    from sbi_tpu_torch.simulators import get_task
+
+    gen = torch.Generator(device=device).manual_seed(seed + 40)
+    task = get_task("two_moons", device=device)
+    observations, _ = reference_posteriors("two_moons")
+    x_o = torch.as_tensor(observations[0], device=device)
+    inference = SNPE_C(prior=task.prior, density_estimator="nsf")
+    proposal = task.prior
+    rounds = []
+    i0, b0 = rqs.inverse_launches, rqs.backward_launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for r, max_epochs in enumerate(epochs):
+            theta, x = simulate_for_sbi(task.simulator, proposal, num_sims, generator=gen)
+            inference.append_simulations(theta, x, proposal=proposal)
+            _, t = sync_time(torch, lambda: inference.train(max_num_epochs=max_epochs, generator=gen))
+            proposal = inference.build_posterior().set_default_x(x_o)
+            rounds.append({"round": r + 1, "train_s": t,
+                           "epochs": inference.summary["epochs_trained"][-1],
+                           "best_validation_loss": inference.summary["best_validation_loss"][-1]})
+    samples = proposal.sample((1_000,), generator=gen)
+    losses = inference.summary["training_loss"] + inference.summary["validation_loss"]
+    check(all(math.isfinite(v) for v in losses), "non-finite SNPE-C loss")
+    check(bool(torch.isfinite(samples).all()), "non-finite SNPE-C sample")
+    check(bool(task.prior.within_support(samples).all()), "SNPE-C sample outside the prior")
+    check(rqs.inverse_launches > i0 and rqs.backward_launches > b0, "SNPE-C bypassed a kernel")
+    emit("snpe_c_two_rounds", simulations_per_round=num_sims, rounds=rounds,
+         inverse_launches=rqs.inverse_launches - i0, backward_launches=rqs.backward_launches - b0)
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -504,13 +863,14 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from sbi_tpu_torch.ops import rqs
-        from sbi_tpu_torch.utils.sbiutils import resolve_device
+        from sbi_tpu_torch.utils.sbiutils import resolve_device, seed_all_backends
     except ImportError as err:
         print(f"chip_smoke: run it from the repository root ({err}).", file=sys.stderr)
         return 1
 
     # 1. Environment
     device = resolve_device(None)  # cuda; switches TF32 off
+    seed_all_backends(args.seed)  # the global generators: weight init of the trainers' nets
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -528,43 +888,71 @@ def main(argv=None) -> int:
     ptxas = [l.strip() for l in rqs.build_log.splitlines() if "registers" in l or "spill" in l]
     emit("build", seconds=time.perf_counter() - t0, library=os.path.basename(str(lib)), ptxas=ptxas)
 
-    # 3. Kernel vs plain version, both directions
-    cases, worst = kernel_checks(torch, rqs, device, 300_000, args.seed)
-    grads = gradient_check(torch, rqs, device, 300_000, args.seed)
+    # 3. Kernels vs plain versions: both directions, values and gradients
+    cases, worst, worst_backward = kernel_checks(torch, rqs, device, 300_000, args.seed)
     stress = stress_check(torch, rqs, device, 300_000, args.seed)
     torch.cuda.synchronize()
     emit("kernel_vs_plain", param_std=PARAM_STD,
          tolerance={"y_atol": Y_ATOL, "y_rtol": Y_RTOL, "ld_atol": LD_ATOL,
-                    "grad_atol": GRAD_ATOL, "grad_rtol": GRAD_RTOL,
-                    "stress_factor": STRESS_FACTOR},
-         cases=cases, gradient_max_abs_err=grads, stress_max_abs_err_vs_float64=stress)
+                    "grad_atol": GRAD_ATOL, "grad_rtol": GRAD_RTOL, "knot_gap": KNOT_GAP,
+                    "stress_factor": STRESS_FACTOR, "grad_quantile": GRAD_QUANTILE},
+         cases=cases, stress_max_abs_err_vs_float64=stress)
 
-    # 4 + 5. Main path: counts zeroed just before, read just after
-    rqs.forward_launches = 0
-    rqs.inverse_launches = 0
-    slcp_path(torch, rqs, device, args.seed)
-    two_moons_path(torch, rqs, device, args.seed)
-    launches = {False: rqs.forward_launches, True: rqs.inverse_launches}
-    check(launches[False] > 0 and launches[True] > 0, f"main path launches {launches}")
-
-    # 6. Times at the main path's sizes, and the kernels line
+    # 4. Times at the main path's sizes. They run before the main path:
+    # after the profiled training epoch, the profiler drops events.
     timings = kernel_timings(torch, rqs, device, args.seed)
+    backward = backward_timings(torch, rqs, device, args.seed)
     emit("kernel_timings", timings={("inverse" if k else "forward"): v for k, v in timings.items()},
+         backward=backward,
          device_ms="device time per call (torch.profiler), the kernel alone",
          time_ms="wall time per call back to back (CUDA events), host work included",
          warm="the working set (35 MB at n = 300,000) stays in the 50 MB L2, as after the conditioner writes it",
          cold=f"{FLUSH_BYTES} bytes written before each call, outside the timed span")
+
+    # 5-10. The main paths, serving then training: each path's counts are
+    # zeroed just before it and read just after, and each of its kernels
+    # must have launched.
+    paths = (
+        ("serving", ("forward", "inverse"), lambda: (
+            slcp_path(torch, rqs, device, args.seed),
+            two_moons_path(torch, rqs, device, args.seed))),
+        ("training", ("forward", "inverse", "backward"), lambda: (
+            slcp_training(torch, rqs, device, args.seed),
+            two_moons_training(torch, rqs, device, args.seed),
+            snpe_two_rounds(torch, rqs, device, args.seed),
+            maf_canonical(torch, device, args.seed))),
+    )
+    by_path = {}
+    for path, kernels_of_path, drive in paths:
+        rqs.forward_launches = rqs.inverse_launches = rqs.backward_launches = 0
+        drive()
+        counts = {"forward": rqs.forward_launches, "inverse": rqs.inverse_launches,
+                  "backward": rqs.backward_launches}
+        check(all(counts[k] > 0 for k in kernels_of_path), f"{path} path launches {counts}")
+        by_path[path] = counts
+    launches = {k: sum(c[k] for c in by_path.values()) for k in ("forward", "inverse", "backward")}
+    emit("launches", by_path=by_path, total=launches)
+
+    # 11. The kernels line
     kernels = []
     for inverse in (False, True):
         t = timings[inverse]
+        direction = "inverse" if inverse else "forward"
         kernels.append({
-            "name": "rqs_spline_" + ("inverse" if inverse else "forward"),
+            "name": f"rqs_spline_{direction}",
             "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-            "launches": launches[inverse], "max_abs_err": worst[inverse],
+            "launches": launches[direction], "max_abs_err": worst[inverse],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "shape": f"n={t['n']}, K={t['K']}",
         })
+    kernels.append({
+        "name": "rqs_spline_backward", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES_BACKWARD, "launches": launches["backward"],
+        "max_abs_err": worst_backward, "ms": backward["ms"], "plain_ms": backward["plain_ms"],
+        "bound_ms": backward["bound_ms"], "bound_by": backward["bound_by"], "library_ms": None,
+        "shape": f"n={backward['n']}, K={backward['K']}, forward direction",
+    })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,15 +4,16 @@ It mirrors ``sbi_tpu``'s layout and public names, module by module. It
 imports ``torch`` and numpy and nothing of JAX or of ``sbi_tpu``. Entry
 points run on the GPU (``device=None`` means ``cuda``) unless the caller
 passes ``device="cpu"``; without CUDA they raise. The rational-quadratic
-spline runs as a hand-written CUDA kernel (``csrc/rqs.cu``) on the card.
+spline and its backward run as hand-written CUDA kernels
+(``csrc/rqs.cu``) on the card.
 
-This slice serves an NSF posterior:
+It trains and serves NPE posteriors:
 
-    from sbi_tpu_torch.neural_nets import posterior_nn
-    from sbi_tpu_torch.inference.posteriors import DirectPosterior
+    from sbi_tpu_torch.inference import NPE
 
-    estimator = posterior_nn("nsf")(theta, x)
-    posterior = DirectPosterior(estimator, prior)
+    inference = NPE(prior=prior)
+    inference.append_simulations(theta, x).train()
+    posterior = inference.build_posterior()
     samples = posterior.sample((1000,), x=x_o)
     log_probs = posterior.log_prob(samples, x=x_o)
 """

@@ -1,0 +1,433 @@
+"""NeuralInference: the abstract trainer and its training loop.
+
+PyTorch counterpart of ``sbi_tpu/inference/trainers/base.py``: the
+round-wise data store, the train/validation split, the early-stopped Adam
+loop with global-norm clipping and best-parameter restore, the summary and
+tracker, pickling, and ``infer()``.
+
+The JAX loop is one XLA program per epoch that hands the host one scalar.
+The port keeps what matters of that on the card:
+
+- the data stay on the device; each epoch's batches are one
+  ``torch.randperm`` on the trainer's generator, the partial batch dropped;
+- no host sync inside a step: losses accumulate on the device, and the clip
+  (optax's ``clip_by_global_norm``: scale by max_norm / ||g|| only when
+  ||g|| >= max_norm, no epsilon) is a ``torch.where`` on the device;
+- one host sync per epoch, where the epoch's mean training loss and its
+  validation loss (one ``no_grad`` pass over the whole validation set)
+  reach the host; the finite check runs there;
+- best-parameter snapshots are device-side ``state_dict`` clones, taken
+  when the validation loss improves and restored at the end.
+
+``epoch_chunk`` is accepted for parity: the port restores the best
+parameters of every epoch exactly. ``train_ensemble``, ``mesh=`` and
+``ema_params_decay`` come with later slices and raise.
+"""
+
+from __future__ import annotations
+
+import math
+import pickle
+import time
+import warnings
+from abc import ABC, abstractmethod
+from typing import Any, Callable, Dict, Optional, Union
+
+import torch
+
+from ...utils.sbiutils import handle_invalid_x, next_generator, resolve_device, warn_on_invalid_x
+from ...utils.tracking import InMemoryTracker, Tracker
+from ._contracts import TrainConfig
+
+_LATER_SLICE = "comes with a later slice of the port"
+
+
+def infer(
+    simulator: Callable,
+    prior,
+    method: Union[str, type],
+    num_simulations: int,
+    num_workers: int = 1,
+    init_kwargs: Optional[Dict] = None,
+    train_kwargs: Optional[Dict] = None,
+    build_posterior_kwargs: Optional[Dict] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """One-shot pipeline: simulate, train, build the posterior. The trainer
+    runs on ``init_kwargs["device"]`` (default cuda), where the prior must
+    lie."""
+    from ...utils.simulation_utils import simulate_for_sbi
+    from ...utils.user_input_checks import process_prior, process_simulator
+    from .. import METHOD_REGISTRY, later_slice_name
+
+    if isinstance(method, str):
+        name = method.upper()
+        if name not in METHOD_REGISTRY:
+            if later_slice_name(name):
+                raise NotImplementedError(f"Method {method} {_LATER_SLICE}.")
+            raise NameError(f"Method not available. Got {method}.")
+        method_fun = METHOD_REGISTRY[name]
+    else:
+        method_fun = method
+
+    prior, _, _ = process_prior(prior)
+    simulator = process_simulator(simulator, prior, False)
+    inference = method_fun(prior=prior, **(init_kwargs or {}))
+    theta, x = simulate_for_sbi(
+        simulator, prior, num_simulations, num_workers=num_workers, generator=generator
+    )
+    inference = inference.append_simulations(theta, x)
+    inference.train(**(train_kwargs or {}))
+    return inference.build_posterior(**(build_posterior_kwargs or {}))
+
+
+def warmup_cosine_decay(step: int, init_value: float, peak_value: float, warmup_steps: int,
+                        decay_steps: int, end_value: float) -> float:
+    """``optax.warmup_cosine_decay_schedule(...)(step)``: linear from
+    ``init_value`` to ``peak_value`` over ``warmup_steps``, then cosine decay
+    to ``end_value`` at ``decay_steps``, constant after."""
+    if step < warmup_steps:
+        return (init_value - peak_value) * (1 - step / warmup_steps) + peak_value
+    span = decay_steps - warmup_steps
+    t = min(step - warmup_steps, span)
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    return peak_value * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t / span)) + alpha)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads, max_norm: float) -> None:
+    """``optax.clip_by_global_norm`` in place, on the device: when the
+    global norm g >= max_norm, every gradient is scaled by max_norm / g."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+
+
+class NeuralInference(ABC):
+    """Abstract base for all trainers. ``device=None`` means cuda (it
+    raises without CUDA); a prior must lie on the trainer's device."""
+
+    def __init__(
+        self,
+        prior=None,
+        device=None,
+        logging_level: Union[int, str] = "WARNING",
+        summary_writer: Optional[Tracker] = None,
+        tracker: Optional[Tracker] = None,
+        show_progress_bars: bool = True,
+    ):
+        self._device = resolve_device(device)
+        try:
+            prior_device = None if prior is None else prior.device
+        except (AttributeError, NotImplementedError):  # a prior that names no device
+            prior_device = None
+        if prior_device is not None and torch.device(prior_device) != self._device:
+            raise ValueError(
+                f"The prior lies on {prior_device}, the trainer on {self._device}; "
+                "build the prior on the trainer's device."
+            )
+        self._prior = prior
+        self._show_progress_bars = show_progress_bars
+        self._tracker = tracker or summary_writer or InMemoryTracker()
+
+        # Round-wise data store, on the device.
+        self._theta_roundwise: list = []
+        self._x_roundwise: list = []
+        self._prior_masks: list = []
+        self._data_round_index: list = []
+        self._proposal_roundwise: list = []
+
+        self._neural_net = None
+        self._optimizer: Optional[torch.optim.Optimizer] = None
+        self._opt_steps = 0
+        self._epoch = 0
+        self._round = 0
+        self._val_loss = float("inf")
+        self._best_val_loss = float("inf")
+        self._epochs_since_last_improvement = 0
+        self._best_params = None
+        self._train_indices: Optional[torch.Tensor] = None
+        self._val_indices: Optional[torch.Tensor] = None
+
+        self._summary: Dict[str, list] = dict(
+            epochs_trained=[],
+            best_validation_loss=[],
+            validation_loss=[],
+            training_loss=[],
+            epoch_durations_sec=[],
+        )
+
+    # ------------------------------------------------------------------ data
+    def get_simulations(self, starting_round: int = 0):
+        """Concatenate the data of rounds >= starting_round."""
+        take = [i for i, r in enumerate(self._data_round_index) if r >= starting_round]
+        theta = torch.cat([self._theta_roundwise[i] for i in take])
+        x = torch.cat([self._x_roundwise[i] for i in take])
+        masks = torch.cat([self._prior_masks[i] for i in take])
+        return theta, x, masks
+
+    def _append_to_data_store(self, theta, x, prior_mask, data_round: int):
+        self._theta_roundwise.append(theta)
+        self._x_roundwise.append(x)
+        self._prior_masks.append(prior_mask)
+        self._data_round_index.append(data_round)
+
+    def _validate_theta_and_x(self, theta, x, exclude_invalid_x=True, algorithm="NPE"):
+        """float32 tensors on the trainer's device, without the rows whose x
+        is invalid (where excluded) or whose theta is not finite."""
+        theta = torch.as_tensor(theta, dtype=torch.float32, device=self._device)
+        x = torch.as_tensor(x, dtype=torch.float32, device=self._device)
+        if theta.shape[0] != x.shape[0]:
+            raise ValueError("Number of parameter sets and simulations must match.")
+        is_valid, num_nans, num_infs = handle_invalid_x(x, exclude_invalid_x)
+        warn_on_invalid_x(num_nans, num_infs, exclude_invalid_x)
+        theta_valid = torch.isfinite(theta.reshape(theta.shape[0], -1)).all(dim=1)
+        keep = is_valid & theta_valid
+        return theta[keep], x[keep]
+
+    # ---------------------------------------------------------------- splits
+    def get_dataloaders(
+        self,
+        start_idx: int = 0,
+        training_batch_size: int = 200,
+        validation_fraction: float = 0.1,
+        resume_training: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Return (theta, x, masks, train_idx, val_idx), index tensors on the
+        device: a random split of floor(fraction * n) validation rows."""
+        theta, x, masks = self.get_simulations(start_idx)
+        n = theta.shape[0]
+        num_val = int(math.floor(validation_fraction * n))
+        num_train = n - num_val
+        if num_train <= 0:
+            raise ValueError("Not enough training data.")
+        if resume_training and self._train_indices is not None:
+            train_idx, val_idx = self._train_indices, self._val_indices
+        else:
+            perm = torch.randperm(n, generator=next_generator(generator, self._device),
+                                  device=self._device)
+            train_idx, val_idx = perm[:num_train], perm[num_train:]
+            self._train_indices, self._val_indices = train_idx, val_idx
+        return theta, x, masks, train_idx, val_idx
+
+    # ------------------------------------------------------------- training
+    def _run_training_loop(
+        self,
+        loss_fn: Callable,
+        cfg: TrainConfig,
+        start_idx: int = 0,
+        generator: Optional[torch.Generator] = None,
+        val_loss_fn: Optional[Callable] = None,
+    ):
+        """Early-stopped Adam loop with one host sync per epoch.
+
+        ``loss_fn(theta_b, x_b, masks_b, generator) -> (B,) losses``;
+        ``val_loss_fn`` (default ``loss_fn``) scores the validation set.
+        """
+        if cfg.mesh is not None:
+            raise NotImplementedError(f"Training over a device mesh (mesh=) {_LATER_SLICE}.")
+        if cfg.ema_params_decay is not None:
+            raise NotImplementedError(f"ema_params_decay {_LATER_SLICE}.")
+        gen = next_generator(generator, self._device)
+        theta, x, masks, train_idx, val_idx = self.get_dataloaders(
+            start_idx, cfg.training_batch_size, cfg.validation_fraction,
+            cfg.resume_training, generator=gen,
+        )
+        net = self._neural_net.net
+        params = [p for p in net.parameters() if p.requires_grad]
+        num_train = train_idx.shape[0]
+        batch_size = min(cfg.training_batch_size, num_train)
+        n_batches = max(1, num_train // batch_size)
+        if not (cfg.resume_training and self._optimizer is not None):
+            self._optimizer = self._make_optimizer(cfg, params)
+            self._opt_steps = 0
+            self._epoch = 0
+        schedule = self._make_schedule(cfg, n_batches)
+
+        # Reset convergence tracking for this train() call.
+        self._best_val_loss = float("inf")
+        self._epochs_since_last_improvement = 0
+        self._best_params = _state_clone(net)
+
+        epoch_start = self._epoch
+        stop = False
+        while not stop and self._epoch - epoch_start < cfg.max_num_epochs:
+            t0 = time.time()
+            perm = torch.randperm(num_train, generator=gen, device=self._device)
+            batches = train_idx[perm[: n_batches * batch_size]].reshape(n_batches, batch_size)
+            loss_sum = torch.zeros((), device=self._device)
+            for b in range(n_batches):
+                idx = batches[b]
+                loss_sum = loss_sum + self._train_step(
+                    loss_fn, (theta[idx], x[idx], masks[idx]), gen, params,
+                    cfg.clip_max_norm, schedule,
+                )
+            with torch.no_grad():
+                val = (val_loss_fn or loss_fn)(theta[val_idx], x[val_idx], masks[val_idx], gen).mean()
+            # The epoch's one host sync.
+            train_loss, val_loss = torch.stack([loss_sum / n_batches, val]).tolist()
+            dt = time.time() - t0
+            if not (math.isfinite(train_loss) and math.isfinite(val_loss)):
+                raise AssertionError(
+                    "NaN/Inf present in training or validation loss "
+                    f"(epoch {self._epoch}). Check simulations for invalid values, "
+                    "consider z-scoring, or lower the learning rate."
+                )
+            self._epoch += 1
+            self._val_loss = val_loss
+            self._summary["training_loss"].append(train_loss)
+            self._summary["validation_loss"].append(val_loss)
+            self._summary["epoch_durations_sec"].append(dt)
+            self._tracker.log_metric("train_loss", train_loss, self._epoch)
+            self._tracker.log_metric("validation_loss", val_loss, self._epoch)
+            if self._converged(val_loss, lambda: _state_clone(net), cfg.stop_after_epochs):
+                stop = True
+            if self._epoch - epoch_start >= cfg.max_num_epochs:
+                warnings.warn(
+                    "Maximum number of epochs reached, but network has not yet fully converged."
+                )
+                stop = True
+
+        net.load_state_dict(self._best_params)
+        self._summary["epochs_trained"].append(self._epoch)
+        self._summary["best_validation_loss"].append(self._best_val_loss)
+        self._tracker.flush()
+        if cfg.show_train_summary:
+            print(self._describe_round(self._round, self._summary))
+        return self._neural_net
+
+    @staticmethod
+    def _make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
+        """Adam as ``optax.adam``: betas (0.9, 0.999), eps 1e-8 outside the
+        square root; the clip is applied before it, in ``_train_step``."""
+        return torch.optim.Adam(params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                                foreach=True)
+
+    def _train_step(self, loss_fn: Callable, batch, generator, params, clip_max_norm,
+                    schedule) -> torch.Tensor:
+        """One optimizer step on the mean loss of ``batch`` (theta, x,
+        masks); returns the loss, detached, without a host sync."""
+        opt = self._optimizer
+        if schedule is not None:
+            lr = schedule(self._opt_steps)
+            for group in opt.param_groups:
+                group["lr"] = lr
+        loss = loss_fn(*batch, generator).mean()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        if clip_max_norm is not None:
+            clip_by_global_norm_([p.grad for p in params if p.grad is not None], clip_max_norm)
+        opt.step()
+        self._opt_steps += 1
+        return loss.detach()
+
+    @staticmethod
+    def _make_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Optional[Callable[[int], float]]:
+        """The learning rate of each optimizer step, or None for a constant
+        one: ``optax.warmup_cosine_decay_schedule`` as the JAX trainer sets
+        it up (``base.py:740-751``)."""
+        if cfg.lr_schedule != "cosine":
+            return None
+        horizon_epochs = cfg.lr_decay_epochs or cfg.max_num_epochs
+        total = max(1, int(horizon_epochs) * max(1, int(steps_per_epoch)))
+        warmup = min(int(cfg.lr_warmup_frac * total), total - 1)
+        init = 0.0 if warmup > 0 else cfg.learning_rate
+        end = cfg.learning_rate * cfg.lr_final_factor
+        return lambda step: warmup_cosine_decay(step, init, cfg.learning_rate, warmup, total, end)
+
+    def _converged(self, val_loss: float, snapshot: Callable[[], Any], stop_after_epochs: int,
+                   n_epochs: int = 1) -> bool:
+        """Best-validation tracking: ``snapshot()`` gives the parameters to
+        keep and is called only when the loss improves. Stops once the loss
+        has not improved for ``stop_after_epochs`` epochs."""
+        if val_loss < self._best_val_loss:
+            self._best_val_loss = val_loss
+            self._epochs_since_last_improvement = 0
+            self._best_params = snapshot()
+        else:
+            self._epochs_since_last_improvement += n_epochs
+        return self._epochs_since_last_improvement > stop_after_epochs - 1
+
+    # ------------------------------------------------------------ ensembles
+    def train_ensemble(self, *args, **kwargs):
+        raise NotImplementedError(f"train_ensemble {_LATER_SLICE}.")
+
+    def build_ensemble_posterior(self, *args, **kwargs):
+        raise NotImplementedError(f"build_ensemble_posterior {_LATER_SLICE}.")
+
+    # ------------------------------------------------------------- summary
+    @staticmethod
+    def _describe_round(round_: int, summary: Dict) -> str:
+        epochs = summary["epochs_trained"][-1] if summary["epochs_trained"] else 0
+        best = summary["best_validation_loss"][-1] if summary["best_validation_loss"] else float("nan")
+        return (
+            f"-------------------------\n"
+            f"||||| ROUND {round_ + 1} STATS |||||:\n"
+            f"-------------------------\n"
+            f"Epochs trained: {epochs}\n"
+            f"Best validation performance: {best:.4f}\n"
+            f"-------------------------\n"
+        )
+
+    @property
+    def summary(self):
+        return self._summary
+
+    # ------------------------------------------------------------- abstract
+    @abstractmethod
+    def append_simulations(self, theta, x, **kwargs) -> "NeuralInference": ...
+
+    @abstractmethod
+    def train(self, **kwargs): ...
+
+    @abstractmethod
+    def build_posterior(self, **kwargs): ...
+
+    # ------------------------------------------------------------- pickling
+    def __getstate__(self):
+        """The tracker and the net-builder closure stay out of the pickle:
+        builders may hold arbitrary user code."""
+        state = self.__dict__.copy()
+        state["_tracker"] = None
+        state["_build_neural_net"] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._tracker = InMemoryTracker()
+        if self._build_neural_net is None:
+            def _missing_builder(*args, **kwargs):
+                raise RuntimeError(
+                    "The net-builder closure is not serialized (it may hold "
+                    "arbitrary user code). The trained estimator was restored "
+                    "and training can resume; to retrain_from_scratch, "
+                    "re-create the trainer with its density_estimator."
+                )
+
+            self._build_neural_net = _missing_builder
+
+    def save(self, path: str):
+        with open(path, "wb") as f:
+            pickle.dump(self, f)
+
+    @staticmethod
+    def load(path: str):
+        """Unpickle a trainer that ``save`` wrote (pickle runs code: load
+        only files this program wrote)."""
+        with open(path, "rb") as f:
+            return pickle.load(f)
+
+
+def _state_clone(net: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A device-side copy of the module's parameters and buffers."""
+    return {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+
+def check_if_proposal_has_default_x(proposal):
+    if hasattr(proposal, "default_x") and proposal.default_x is None:
+        raise ValueError(
+            "`proposal.default_x` is None, i.e. there is no `x_o` for training. "
+            "Set it with `posterior.set_default_x(x_o)`."
+        )
+

@@ -4,6 +4,7 @@ from .flows import (
     FlowModule,
     LULinear,
     MADENet,
+    MaskedAffineAutoregressive,
     MaskedDense,
     MaskedRQSAutoregressive,
     Permutation,
@@ -18,6 +19,7 @@ __all__ = [
     "FlowModule",
     "LULinear",
     "MADENet",
+    "MaskedAffineAutoregressive",
     "MaskedDense",
     "MaskedRQSAutoregressive",
     "Permutation",

@@ -1,11 +1,12 @@
 """Neural spline flows as PyTorch modules.
 
-PyTorch counterpart of the NSF pieces of
+PyTorch counterpart of the NSF and MAF pieces of
 ``sbi_tpu/neural_nets/estimators/flows.py``: the RQ spline (re-exported from
-``ops/rqs.py``, the CUDA kernel on the card), MADE masks, ``MaskedDense``, ``MADENet``,
-``MaskedRQSAutoregressive``, ``RQSCoupling``, ``LULinear``, ``Permutation``,
-``FlowModule`` and ``FlowEstimator``. MAF, NICE, the circular spline and
-MADE-MoG come with later slices.
+``ops/rqs.py``, the CUDA kernels on the card), MADE masks, ``MaskedDense``,
+``MADENet``, ``MaskedAffineAutoregressive``, ``MaskedRQSAutoregressive``,
+``RQSCoupling``, ``LULinear``, ``Permutation``, ``FlowModule`` and
+``FlowEstimator``. NICE, the circular spline and MADE-MoG come with later
+slices.
 
 Conventions (as in the JAX package):
   - ``forward`` maps data -> noise (one pass for all layers), ``inverse``
@@ -27,7 +28,7 @@ from torch import nn
 
 # The spline: the kernel's wrapper (CUDA kernel on the card, plain version on
 # the CPU) and the plain version itself.
-from ...ops.rqs import rational_quadratic_spline, rational_quadratic_spline_plain  # noqa: F401
+from ...ops.rqs import _clip, rational_quadratic_spline, rational_quadratic_spline_plain  # noqa: F401
 from ...utils.sbiutils import next_generator
 from .base import ConditionalDensityEstimator
 
@@ -133,6 +134,37 @@ class MADENet(nn.Module):
 # ===========================================================================
 # Bijection layers. forward(x, ctx) -> (y, ldj); inverse likewise.
 # ===========================================================================
+
+
+class MaskedAffineAutoregressive(nn.Module):
+    """One MAF layer: z = (x - mu(x_<i)) * exp(-log_scale(x_<i)), the log
+    scale clipped to ``log_scale_bounds`` (ties split as ``jnp.clip``)."""
+
+    def __init__(self, dim: int, hidden_features: int = 50, num_blocks: int = 2,
+                 context_features: Optional[int] = None,
+                 log_scale_bounds: Tuple[float, float] = (-5.0, 3.0)):
+        super().__init__()
+        self.dim = dim
+        self.log_scale_bounds = tuple(float(b) for b in log_scale_bounds)
+        self.made = MADENet(dim=dim, out_mult=2, hidden_features=hidden_features,
+                            num_hidden_layers=num_blocks, context_features=context_features)
+
+    def _params(self, x, context):
+        out = self.made(x, context)
+        return out[..., 0], _clip(out[..., 1], *self.log_scale_bounds)
+
+    def forward(self, x, context=None):
+        mu, log_scale = self._params(x, context)
+        return (x - mu) * torch.exp(-log_scale), -log_scale.sum(-1)
+
+    def inverse(self, z, context=None):
+        # Sequential over dims: dim i only depends on x_<i.
+        x = torch.zeros_like(z)
+        for _ in range(self.dim):
+            mu, log_scale = self._params(x, context)
+            x = mu + z * torch.exp(log_scale)
+        _, log_scale = self._params(x, context)
+        return x, log_scale.sum(-1)
 
 
 class MaskedRQSAutoregressive(nn.Module):
@@ -281,7 +313,7 @@ class Permutation(nn.Module):
 # Flow module: stack of bijections + standard-normal base
 # ===========================================================================
 
-_LATER_SLICE_LAYERS = ("maf", "additive_coupling", "diag_affine", "monotone_ar")
+_LATER_SLICE_LAYERS = ("additive_coupling", "diag_affine", "monotone_ar")
 
 
 class FlowModule(nn.Module):
@@ -298,7 +330,9 @@ class FlowModule(nn.Module):
         layers = []
         for kind, kw in layer_configs:
             kw = dict(kw)
-            if kind == "rqs_ar":
+            if kind == "maf":
+                layers.append(MaskedAffineAutoregressive(dim=dim, context_features=context_features, **kw))
+            elif kind == "rqs_ar":
                 layers.append(MaskedRQSAutoregressive(dim=dim, context_features=context_features, **kw))
             elif kind == "rqs_coupling":
                 layers.append(RQSCoupling(dim=dim, context_features=context_features, **kw))

@@ -1,7 +1,8 @@
 """String -> builder factories, returning ``build_fn(batch_theta, batch_x)``
 closures so nets are shaped and z-scored from the first data batch
-(PyTorch counterpart of ``sbi_tpu/neural_nets/factory.py``). This slice
-ports ``model="nsf"``; the other models come with later slices.
+(PyTorch counterpart of ``sbi_tpu/neural_nets/factory.py``). The port
+has ``model="nsf"`` and ``model="maf"``; the other models come with later
+slices.
 """
 
 from __future__ import annotations
@@ -27,14 +28,15 @@ def posterior_nn(
     """
 
     def build_fn(batch_theta, batch_x):
-        if model != "nsf":
-            raise NotImplementedError(
-                f"posterior_nn(model='{model}') is not ported yet; only 'nsf' is. "
-                "The other models come with later slices."
-            )
-        from .net_builders.flow import build_nsf
+        from .net_builders.flow import build_maf, build_nsf
 
-        return build_nsf(
+        builders = {"nsf": build_nsf, "maf": build_maf}
+        if model not in builders:
+            raise NotImplementedError(
+                f"posterior_nn(model='{model}') is not ported yet; 'nsf' and 'maf' "
+                "are. The other models come with later slices."
+            )
+        return builders[model](
             batch_theta,
             batch_x,
             z_score_theta=z_score_theta,

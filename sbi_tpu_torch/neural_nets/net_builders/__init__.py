@@ -1,3 +1,3 @@
-from .flow import build_nsf
+from .flow import build_maf, build_nsf
 
-__all__ = ["build_nsf"]
+__all__ = ["build_maf", "build_nsf"]

@@ -1,9 +1,10 @@
-"""NSF builder (PyTorch counterpart of ``sbi_tpu/neural_nets/net_builders/flow.py``).
+"""NSF and MAF builders (PyTorch counterpart of
+``sbi_tpu/neural_nets/net_builders/flow.py``).
 
-The builder takes data batches, infers shapes, prepends z-scoring, and
+Each builder takes data batches, infers shapes, prepends z-scoring, and
 returns a FlowEstimator on ``device`` (``None`` means ``cuda``; it raises
-without CUDA). Defaults match the JAX package: hidden 50 / 5 transforms /
-10 bins / tail 3.0 / 2 blocks.
+without CUDA). Defaults match the JAX package: NSF hidden 50 / 5
+transforms / 10 bins / tail 3.0 / 2 blocks; MAF 50 / 5 / 2.
 """
 
 from __future__ import annotations
@@ -91,6 +92,35 @@ def _build_flow_estimator(
     )
 
 
+def build_maf(
+    batch_theta,
+    batch_x,
+    z_score_theta="independent",
+    z_score_x="independent",
+    hidden_features: int = 50,
+    num_transforms: int = 5,
+    num_blocks: int = 2,
+    embedding_net=None,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+    **kwargs,
+):
+    """MAF: [affine autoregressive + reverse permutation] x num_transforms."""
+    dim = int(torch.as_tensor(batch_theta).shape[-1])
+    maf_kw = dict(hidden_features=hidden_features, num_blocks=num_blocks)
+    if "affine_log_scale_bounds" in kwargs:
+        maf_kw["log_scale_bounds"] = tuple(kwargs["affine_log_scale_bounds"])
+    configs = []
+    for _ in range(num_transforms):
+        configs.append(("maf", dict(maf_kw)))
+        if dim > 1:
+            configs.append(("permutation", dict(perm=tuple(range(dim - 1, -1, -1)))))
+    return _build_flow_estimator(
+        batch_theta, batch_x, configs, z_score_theta, z_score_x, embedding_net,
+        generator, x_dist=kwargs.get("x_dist"), device=device,
+    )
+
+
 def build_nsf(
     batch_theta,
     batch_x,
@@ -113,7 +143,7 @@ def build_nsf(
     (a coupling can only transform one coordinate per layer there)."""
     if interleave_affine:
         raise NotImplementedError(
-            "interleave_affine=True needs the MAF layer, which comes with a later slice."
+            "build_nsf(interleave_affine=True) is not ported yet; it comes with a later slice."
         )
     dim = int(torch.as_tensor(batch_theta).shape[-1])
     configs = []

@@ -5,13 +5,16 @@ from .distributions import (
     MultivariateNormal,
     Uniform,
 )
+from .metrics import c2st_torch
 from .sbiutils import (
     ensure_theta_batched,
+    handle_invalid_x,
     next_generator,
     resolve_device,
     seed_all_backends,
     standardizing_transform,
     warn_if_invalid_for_zscoring,
+    warn_on_invalid_x,
     within_support,
     z_score_parser,
     z_score_stats,
@@ -24,3 +27,4 @@ from .transforms import (
     Transform,
     mcmc_transform,
 )
+from .tracking import InMemoryTracker, Tracker

@@ -7,7 +7,8 @@ imports no JAX. Layer names follow flax:
   - ``layers_{i}/Dense_{j}``: ``RQSCoupling``'s conditioner, ``Dense_0``
     taking ``[x_id, context]`` and the last ``Dense`` the zero-init head;
   - ``layers_{i}/made/{MaskedDense_j, Dense_0}``: ``MaskedRQSAutoregressive``
-    (``Dense_0`` is the context injection);
+    and ``MaskedAffineAutoregressive`` (``Dense_0`` is the context
+    injection);
   - ``layers_{i}/{lower, upper, log_diag, bias}``: ``LULinear``.
 
 flax ``Dense`` kernels are (in, out) and torch ``Linear`` weights (out, in),
@@ -27,6 +28,7 @@ from ..neural_nets.estimators.base import ConditionalEstimator
 from ..neural_nets.estimators.flows import (
     LULinear,
     MADENet,
+    MaskedAffineAutoregressive,
     MaskedRQSAutoregressive,
     Permutation,
     RQSCoupling,
@@ -81,7 +83,7 @@ def load_flax_params(
             if isinstance(layer, RQSCoupling):
                 for j, dense in enumerate(layer.dense):
                     used += _load_dense(dense, p[f"Dense_{j}"], f"{name}/Dense_{j}")
-            elif isinstance(layer, MaskedRQSAutoregressive):
+            elif isinstance(layer, (MaskedRQSAutoregressive, MaskedAffineAutoregressive)):
                 used += _load_made(layer.made, p["made"], f"{name}/made")
             elif isinstance(layer, LULinear):
                 for attr in ("lower", "upper", "log_diag", "bias"):

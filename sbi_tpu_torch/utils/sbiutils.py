@@ -1,7 +1,7 @@
 """Core utilities: devices, random generators, z-scoring, support checks.
 
 PyTorch counterpart of ``sbi_tpu/utils/sbiutils.py`` (the parts the NSF
-serving path uses). Where the JAX package threads ``key=``, this package takes
+serving and training paths use). Where the JAX package threads ``key=``, this package takes
 an explicit ``torch.Generator``; ``generator=None`` falls back to a
 per-device global generator that ``seed_all_backends`` seeds, mirroring the
 JAX package's global key store.
@@ -184,6 +184,48 @@ def standardizing_transform(batch: torch.Tensor, structured: bool = False):
     warn_if_invalid_for_zscoring(batch)
     mean, std = z_score_stats(batch, structured)
     return AffineTransform(mean, std)
+
+
+# ---------------------------------------------------------------------------
+# Invalid simulations (mirror of `sbi_tpu/utils/sbiutils.py:201-240`)
+# ---------------------------------------------------------------------------
+
+
+def handle_invalid_x(x: torch.Tensor, exclude_invalid_x: bool = True) -> Tuple[torch.Tensor, int, int]:
+    """Return (is_valid mask, num_nans, num_infs): a row is invalid where
+    any of its entries is NaN or infinite. One host sync for the counts."""
+    x = torch.as_tensor(x)
+    flat = x.reshape(x.shape[0], -1)
+    nan_mask = torch.isnan(flat).any(dim=1)
+    inf_mask = torch.isinf(flat).any(dim=1)
+    num_nans, num_infs = (int(v) for v in torch.stack([nan_mask.sum(), inf_mask.sum()]).tolist())
+    if exclude_invalid_x:
+        is_valid = ~(nan_mask | inf_mask)
+    else:
+        is_valid = torch.ones(flat.shape[0], dtype=torch.bool, device=flat.device)
+    return is_valid, num_nans, num_infs
+
+
+def warn_on_invalid_x(num_nans: int, num_infs: int, exclude_invalid_x: bool) -> None:
+    if num_nans + num_infs > 0:
+        if exclude_invalid_x:
+            warnings.warn(
+                f"Found {num_nans} NaN simulations and {num_infs} Inf simulations. "
+                "They will be excluded from training."
+            )
+        else:
+            warnings.warn(
+                f"Found {num_nans} NaN simulations and {num_infs} Inf simulations. "
+                "Training might fail."
+            )
+
+
+def nle_nre_apt_msg_on_invalid_x(num_nans, num_infs, exclude_invalid_x, algorithm):
+    if num_nans + num_infs > 0:
+        warnings.warn(
+            f"Found {num_nans} NaN and {num_infs} Inf simulations. Excluding them "
+            f"is not exact for {algorithm}; consider a RestrictionEstimator."
+        )
 
 
 # ---------------------------------------------------------------------------

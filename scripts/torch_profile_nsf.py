@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time goes in sbi_tpu_torch's NSF serving path, on one GPU.
+"""Where the time goes in sbi_tpu_torch's NSF serving and training paths,
+on one GPU.
 
 Builds the SLCP posterior of ``chip_smoke.py`` (5 coupling transforms,
 hidden 50, 10 bins, random weights from ``--seed``), warms it up, then runs
 ``DirectPosterior.sample((100_000,))`` and ``log_prob`` of those samples
-under ``torch.profiler``. Prints one JSON line per call: wall time, device
-busy time (sum of kernel times), the device's idle share, the number of
-kernel launches, and the device time of the heaviest kernels by name, the
-RQ-spline kernel's share among them. Needs CUDA; run from the repository
+under ``torch.profiler``; then trains SLCP NPE at the same width on 10,000
+simulations (batch 200) and profiles one epoch after a warm-up epoch.
+Prints one JSON line per call: wall time, device busy time (sum of kernel
+times), the device's idle share, the number of kernel launches, the device
+time of the heaviest kernels by name and the RQ-spline kernels' share
+(forward and backward). The training line adds the host's heaviest
+operations by their own CPU time and the number of host syncs in an epoch
+(``torch.cuda.set_sync_debug_mode``). Needs CUDA; run from the repository
 root:
 
     python3 scripts/torch_profile_nsf.py
@@ -38,12 +43,17 @@ def profile(torch, fn, top=8):
     kernels = {}
     launches = 0
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # A user annotation (the optimizer's step range) is reported as a
+        # device event too, and is no work of its own.
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                evt, "is_user_annotation", False):
             kernels[evt.name] = kernels.get(evt.name, 0.0) + evt.device_time_total
             launches += 1
     busy_s = sum(kernels.values()) / 1e6
     spline_s = sum(v for k, v in kernels.items() if "rqs_kernel" in k) / 1e6
+    backward_s = sum(v for k, v in kernels.items() if "rqs_backward_kernel" in k) / 1e6
     heaviest = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:top]
     return {
         "wall_s": wall,
         "device_busy_s": busy_s,
@@ -51,8 +61,26 @@ def profile(torch, fn, top=8):
         "device_ops": launches,
         "spline_s": spline_s,
         "spline_share_of_busy": spline_s / busy_s if busy_s else None,
+        "spline_backward_s": backward_s,
+        "spline_backward_share_of_busy": backward_s / busy_s if busy_s else None,
         "heaviest": [{"name": k[:80], "s": v / 1e6} for k, v in heaviest],
+        "host_heaviest": [{"name": e.key[:80], "self_cpu_s": e.self_cpu_time_total / 1e6,
+                           "calls": e.count} for e in host],
     }
+
+
+def host_syncs(torch, fn):
+    """Host syncs that ``fn`` makes, as torch's sync debug mode reports them."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def main(argv=None) -> int:
@@ -100,6 +128,29 @@ def main(argv=None) -> int:
         fn()  # warm-up of this call's shapes
         print(json.dumps({"call": name, "samples": args.samples, "device": smi, **profile(torch, fn)}),
               flush=True)
+
+    import warnings
+
+    from sbi_tpu_torch.inference import NPE
+
+    inference = NPE(prior=task.prior, density_estimator="nsf")
+    inference.append_simulations(theta, slcp_simulator(theta, generator=gen))
+
+    def epoch():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # "Maximum number of epochs reached"
+            inference.train(max_num_epochs=1, resume_training=bool(inference._optimizer),
+                            generator=gen)
+
+    epoch()  # warm-up; builds the net
+    steps0 = inference._opt_steps
+    result = profile(torch, epoch)
+    steps = inference._opt_steps - steps0
+    syncs = host_syncs(torch, epoch)
+    print(json.dumps({"call": "train_epoch", "simulations": theta.shape[0], "batch": 200,
+                      "steps": steps, "steps_per_s_profiled": steps / result["wall_s"],
+                      "device_ops_per_step": result["device_ops"] / steps,
+                      "host_syncs_per_epoch": syncs, "device": smi, **result}), flush=True)
     return 0
 
 

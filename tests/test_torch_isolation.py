@@ -86,7 +86,43 @@ def test_entry_points_default_to_cuda():
     est = build_nsf(theta, x, hidden_features=8, num_transforms=1, device="cpu")
     assert est.device == torch.device("cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
-        posterior_nn("maf")(theta, x)
+        posterior_nn("mdn")(theta, x)
+
+    # Training: the trainer, a builder made without a device, the simulation
+    # helper and infer() raise without CUDA; with device="cpu" they run.
+    from sbi_tpu_torch.inference import NPE, infer, simulate_for_sbi
+    from sbi_tpu_torch.simulators import two_moons_simulator
+
+    prior = BoxUniform(-np.ones(2), np.ones(2), device="cpu")
+    theta2 = theta[:, :2]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NPE(prior=prior)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NPE(prior=prior, density_estimator=posterior_nn("nsf"), device="cpu").append_simulations(
+            theta2, x[:, :2]).train(max_num_epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulate_for_sbi(two_moons_simulator, get_task("two_moons").prior, 10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        infer(two_moons_simulator, prior, "NPE", 50)
+    small = posterior_nn("nsf", hidden_features=8, num_transforms=1, device="cpu")
+    trainer = NPE(prior=prior, density_estimator=small, device="cpu")
+    theta_s, x_s = simulate_for_sbi(two_moons_simulator, prior, 50)
+    assert theta_s.device == x_s.device == torch.device("cpu")
+    trainer.append_simulations(theta_s, x_s).train(max_num_epochs=1)
+    assert trainer._neural_net.device == torch.device("cpu")
+    posterior = infer(two_moons_simulator, prior, "NPE", 50,
+                      init_kwargs=dict(device="cpu", density_estimator=small),
+                      train_kwargs=dict(max_num_epochs=1))
+    assert posterior.sample((5,), x=np.zeros(2, np.float32)).shape == (5, 2)
+
+
+def test_prior_on_another_device_than_the_trainer_raises():
+    from sbi_tpu_torch.inference import NPE
+    from sbi_tpu_torch.utils import BoxUniform
+
+    prior = BoxUniform(-np.ones(2), np.ones(2), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        NPE(prior=prior, device="cpu")
 
 
 def test_chip_smoke_refuses_to_run_here(tmp_path):
