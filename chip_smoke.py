@@ -22,7 +22,16 @@ public entry points:
   of it), two_moons NPE trained to early stopping and scored by C2ST
   against the reference posteriors in ``tests/mini_sbibm/files``, and a
   2-round SNPE-C run on two_moons, and the four-line recipe with its
-  defaults (a MAF, on cuda).
+  defaults (a MAF, on cuda);
+- NLE and MCMC: the vectorized slice sampler on bench.py's headline target
+  (1,000 chains on a 5-D correlated Gaussian: samples/s, FSM iterations,
+  host syncs, and the effect of the sync block's length) and on SLCP's
+  exact likelihood (C2ST against ``slcp_ref.npz``); SLCP NLE at full width
+  (training steps/s, then 1,000 chains through the NSF likelihood:
+  samples/s, the device-busy share, and five forward launches per potential
+  evaluation); two_moons NLE trained to early stopping and scored by C2ST;
+  ``MCMCPosterior.sample_batched`` over 8 observations, and
+  ``DirectPosterior.sample_batched``'s MCMC fill of starved observations.
 
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero. The kernel launch counters are zeroed just before the main path
@@ -89,8 +98,9 @@ ROUND_TRIP_ATOL = 1e-3  # noise -> data -> noise through 5 spline layers
 SAMPLE_LP_ATOL = 1e-3  # single-pass sample_and_log_prob vs log_prob
 # Kernel timing sizes, (conditioner rows, transformed dims) at K = 10: one
 # 10,000-row proposal batch of two_moons (2) and of SLCP's couplings (3),
-# and a 100,000-row log_prob of SLCP.
-TIMING_SIZES = ((10_000, 2), (10_000, 3), (100_000, 3))
+# a 100,000-row log_prob of SLCP, and one potential evaluation of 1,000
+# MCMC chains through SLCP's NLE likelihood (4 of x's 8 dims per coupling).
+TIMING_SIZES = ((10_000, 2), (10_000, 3), (100_000, 3), (1_000, 4))
 # The backward's sizes: a training batch of SLCP's couplings (200 x 3), an
 # atomic-loss batch of two_moons (200 rows x 10 atoms x 2), and the
 # 100,000 x 3 of the forward's largest size.
@@ -99,10 +109,40 @@ BACKWARD_SIZES = ((200, 3), (2_000, 2), (100_000, 3))
 # 0.5319 mean there, bm_results_round2.csv, with sklearn's C2ST).
 C2ST_MEAN_MAX, C2ST_EACH_MAX = 0.60, 0.65
 FLUSH_BYTES = 2 * 50 * 10**6  # twice the 50 MB L2, written before a cold call
+# Vectorized slice sampling, bench.py's headline (bench.py:40-92): 1,000
+# chains on a 5-D Gaussian with correlation 0.5, warmup 50, 100 samples a
+# chain. The draws' mean must be within 0.1 of 0 per coordinate and their
+# covariance within 0.1 of the target's.
+SLICE_CHAINS, SLICE_DIM, SLICE_WARMUP, SLICE_SAMPLES, SLICE_RHO = 1_000, 5, 50, 100, 0.5
+SLICE_MEAN_ATOL, SLICE_COV_ATOL = 0.1, 0.1
+# SLCP's exact likelihood, as tests/test_fixture_equivalence.py samples it:
+# 100 chains, warmup 300, 40 samples a chain, thin 4; C2ST of the first
+# 1,000 draws against 1,000 reference samples, below 0.6 per observation.
+SLCP_CHAINS, SLCP_WARMUP, SLCP_PER_CHAIN, SLCP_THIN, SLCP_C2ST_MAX = 100, 300, 40, 4, 0.6
+# NLE on SLCP (bench.py:124-126): 1,000 chains, warmup 10, 5 samples a chain.
+NLE_CHAINS, NLE_WARMUP, NLE_SAMPLES = 1_000, 10, 5
+# two_moons NLE-NSF on 10,000 simulations, at most 60 epochs, 100 chains,
+# warmup 100 (tests/test_bm.py:135-136), 5,000 draws against 5,000
+# reference samples per observation. sbi_tpu's single-round NLE read 0.5842 mean
+# (bm_results_round1.csv:6: 2,000 simulations, the default MAF, sklearn's
+# C2ST), another budget and classifier: a reference point, not the bar.
+NLE_C2ST_MEAN_MAX, NLE_C2ST_EACH_MAX = 0.62, 0.68
+# sample_batched's column b against sample() at observation b, 1,000 draws a
+# side, one per chain: C2ST at most 0.6 (about 4 standard deviations above
+# 0.5 for 400 held-out points; another observation's draws read near 1).
+BATCHED_C2ST_MAX = 0.6
+SBI_TPU_NLE_TWO_MOONS = {"c2st_mean": 0.5842, "c2st": [0.5535, 0.6445, 0.5545],
+                         "simulations": 2000, "density_estimator": "maf",
+                         "classifier": "sklearn", "source": "bm_results_round1.csv:6"}
+
+
+_START = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line for a phase, with the seconds since the script began."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - _START}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -270,11 +310,16 @@ def kernel_checks(torch, rqs, device, n_main, seed):
     for inverse in (False, True):
         x, w, h, d = spline_inputs(torch, n_main, 10, device, gen)
         worst[inverse] = max(worst[inverse], run("main_strided", x, w, h, d, inverse))
-        # (rows, n_trans, 3K-1) as the coupling layer produces it.
-        p = PARAM_STD * torch.randn(n_main // 3, 3, 29, generator=gen, device=device)
-        xr = 1.5 * torch.randn(n_main // 3, 3, generator=gen, device=device)
-        worst[inverse] = max(worst[inverse], run(
-            "coupling_layout", xr, p[..., :10], p[..., 10:20], p[..., 20:], inverse))
+        # (rows, n_trans, 3K-1) as the coupling layer produces it: SLCP's
+        # posterior at the main size, and SLCP's NLE likelihood (4 of x's 8
+        # dims) at one potential evaluation of 1,000 chains, at the 10,000
+        # init candidates and at a training batch of 200.
+        for rows, n_trans in ((n_main // 3, 3), (NLE_CHAINS, 4), (10_000, 4), (200, 4)):
+            p = PARAM_STD * torch.randn(rows, n_trans, 29, generator=gen, device=device)
+            xr = 1.5 * torch.randn(rows, n_trans, generator=gen, device=device)
+            name = "coupling_layout" if n_trans == 3 else f"coupling_layout_{rows}x{n_trans}"
+            worst[inverse] = max(worst[inverse], run(
+                name, xr, p[..., :10], p[..., 10:20], p[..., 20:], inverse))
         # Tile edges: n = 1, and n not a multiple of any tile size, in both
         # tile loads (one row span, and separate tensors).
         for n in (1, 33, 300_001, 1_000_003):
@@ -751,7 +796,7 @@ def reference_posteriors(task_name):
 def two_moons_training(torch, rqs, device, seed, num_sims=10_000, max_epochs=90):
     """two_moons NPE-NSF on ``num_sims`` simulations trained to early
     stopping (at most ``max_epochs``), then C2ST against the reference
-    posterior of each fixture observation."""
+    posterior of each fixture observation. Returns the trainer."""
     import warnings
 
     from sbi_tpu_torch.inference import NPE, simulate_for_sbi
@@ -781,6 +826,7 @@ def two_moons_training(torch, rqs, device, seed, num_sims=10_000, max_epochs=90)
          best_validation_loss=inference.summary["best_validation_loss"][-1],
          c2st=scores, c2st_mean=mean, c2st_bar={"mean": C2ST_MEAN_MAX, "each": C2ST_EACH_MAX})
     check(mean <= C2ST_MEAN_MAX and max(scores) <= C2ST_EACH_MAX, f"two_moons C2ST {scores}")
+    return inference
 
 
 def maf_canonical(torch, device, seed, num_sims=2_000, epochs=5):
@@ -848,6 +894,303 @@ def snpe_two_rounds(torch, rqs, device, seed, num_sims=2_000, epochs=(30, 10)):
 
 
 # ---------------------------------------------------------------------------
+# NLE and MCMC
+# ---------------------------------------------------------------------------
+
+
+class FsmCounts:
+    """Counts the slice sampler's FSM iterations and host syncs in a block
+    of code, by wrapping the module's iteration and its loop condition (the
+    sampler's one host sync per block). With ``strict``, every other host
+    sync in the block raises: ``torch.cuda.set_sync_debug_mode("error")``
+    is on except inside the loop condition."""
+
+    def __init__(self, torch, fsm, strict=False):
+        self.torch, self.fsm, self.strict = torch, fsm, strict
+        self.iterations = self.syncs = 0
+
+    def __enter__(self):
+        fsm, torch = self.fsm, self.torch
+        self._orig = (fsm._fsm_iteration, fsm._all_recorded)
+        step, recorded = self._orig
+
+        def counted_step(*args, **kwargs):
+            self.iterations += 1
+            return step(*args, **kwargs)
+
+        def counted_sync(*args, **kwargs):
+            self.syncs += 1
+            if self.strict:
+                torch.cuda.set_sync_debug_mode(0)
+            try:
+                return recorded(*args, **kwargs)
+            finally:
+                if self.strict:
+                    torch.cuda.set_sync_debug_mode("error")
+
+        fsm._fsm_iteration, fsm._all_recorded = counted_step, counted_sync
+        if self.strict:
+            torch.cuda.set_sync_debug_mode("error")
+        return self
+
+    def __exit__(self, *exc):
+        if self.strict:
+            self.torch.cuda.set_sync_debug_mode(0)
+        self.fsm._fsm_iteration, self.fsm._all_recorded = self._orig
+        return False
+
+    def fields(self, seconds):
+        return {"fsm_iterations": self.iterations, "host_syncs": self.syncs,
+                "host_us_per_iteration": seconds / max(self.iterations, 1) * 1e6}
+
+
+def slice_gaussian(torch, fsm, device, seed):
+    """bench.py's headline on the port: 1,000 chains on the 5-D correlated
+    Gaussian. A short warm-up run (strict: no host sync but the loop
+    condition's), then a timed run."""
+    from sbi_tpu_torch.samplers.mcmc import run_slice_vectorized
+
+    cov = SLICE_RHO * torch.ones(SLICE_DIM, SLICE_DIM) + (1 - SLICE_RHO) * torch.eye(SLICE_DIM)
+    prec = torch.linalg.inv(cov).to(device)
+
+    def potential(t):
+        return -0.5 * torch.einsum("bi,ij,bj->b", t, prec, t)
+
+    gen = torch.Generator(device=device).manual_seed(seed + 60)
+    inits = torch.randn(SLICE_CHAINS, SLICE_DIM, generator=gen, device=device)
+
+    def run(num_samples=SLICE_SAMPLES):
+        return run_slice_vectorized(potential, inits, num_samples=num_samples,
+                                    warmup_steps=SLICE_WARMUP, init_width=1.0, generator=gen)
+
+    with FsmCounts(torch, fsm, strict=device.type == "cuda"):
+        run(num_samples=10)
+    with FsmCounts(torch, fsm) as counts:
+        draws, seconds = sync_time(torch, run)
+    flat = draws.reshape(-1, SLICE_DIM)
+    mean = flat.mean(0)
+    emp_cov = torch.cov(flat.T).cpu()
+    emit("slice_gaussian", chains=SLICE_CHAINS, dim=SLICE_DIM, rho=SLICE_RHO,
+         warmup=SLICE_WARMUP, samples_per_chain=SLICE_SAMPLES, seconds=seconds,
+         posterior_samples_per_sec_1k_slice_chains=SLICE_CHAINS * SLICE_SAMPLES / seconds,
+         sync_every=fsm.SYNC_EVERY, **counts.fields(seconds), mean=mean.tolist(),
+         cov_max_abs_err=float((emp_cov - cov).abs().max()))
+    check(draws.shape == (SLICE_SAMPLES, SLICE_CHAINS, SLICE_DIM), f"draws {tuple(draws.shape)}")
+    check(bool(torch.isfinite(draws).all()), "non-finite slice draws")
+    check(float(mean.abs().max()) < SLICE_MEAN_ATOL, f"slice mean {mean.tolist()}")
+    check(bool(torch.allclose(emp_cov, cov, atol=SLICE_COV_ATOL)), f"slice covariance {emp_cov}")
+
+
+def slcp_exact_slice(torch, fsm, device, seed, num_obs=2):
+    """The sampler on a hard multimodal target, without a network:
+    ``MCMCPosterior`` over SLCP's exact likelihood plus the prior, in the
+    prior's unconstrained space, at the first observations of
+    ``slcp_ref.npz``; C2ST against their reference samples."""
+    from sbi_tpu_torch.inference import MCMCPosterior
+    from sbi_tpu_torch.simulators import get_task
+    from sbi_tpu_torch.utils import c2st_torch, mcmc_transform
+
+    gen = torch.Generator(device=device).manual_seed(seed + 70)
+    task = get_task("slcp", device=device)
+    observations, references = reference_posteriors("slcp_ref")
+
+    def potential(theta, x_o):
+        return task.log_likelihood(theta, x_o) + task.prior.log_prob(theta)
+
+    results = []
+    for idx in range(num_obs):
+        post = MCMCPosterior(potential, proposal=task.prior, theta_transform=mcmc_transform(task.prior),
+                             num_chains=SLCP_CHAINS, warmup_steps=SLCP_WARMUP, thin=SLCP_THIN,
+                             init_strategy="proposal", device=device)
+        x_o = torch.as_tensor(observations[idx], device=device)
+        with FsmCounts(torch, fsm) as counts:
+            samples, seconds = sync_time(torch, lambda: post.sample(
+                (SLCP_CHAINS * SLCP_PER_CHAIN,), x=x_o, generator=gen))
+        check(bool(torch.isfinite(samples).all()), "non-finite SLCP sample")
+        check(bool(task.prior.within_support(samples).all()), "SLCP sample outside the prior")
+        ref = torch.as_tensor(references[idx][:1000], device=device)
+        score = float(c2st_torch(samples[:1000], ref, generator=gen))
+        results.append({"observation": idx, "c2st": score, "seconds": seconds, **counts.fields(seconds)})
+    emit("slcp_exact_slice", chains=SLCP_CHAINS, warmup=SLCP_WARMUP, samples_per_chain=SLCP_PER_CHAIN,
+         thin=SLCP_THIN, c2st_max=SLCP_C2ST_MAX, observations=results)
+    check(all(r["c2st"] < SLCP_C2ST_MAX for r in results), f"SLCP exact-likelihood C2ST {results}")
+
+
+def nle_slcp(torch, rqs, fsm, device, seed, num_sims=10_000, epochs=3):
+    """BASELINE config 3's hot path at full width: NLE-NSF on SLCP (x 8-D
+    through 5 couplings, theta 5-D as the condition) trained for a few
+    epochs, then 1,000 chains sampled through the likelihood potential: a
+    warm run (strict: no host sync but the loop condition's), a timed run
+    and a profiled one. Every potential evaluation, the init candidates'
+    one included, is one flow pass and one forward launch per coupling."""
+    import warnings
+
+    from sbi_tpu_torch.inference import NLE
+    from sbi_tpu_torch.simulators import get_task, slcp_simulator
+
+    gen = torch.Generator(device=device).manual_seed(seed + 80)
+    task = get_task("slcp", device=device)
+    theta = task.prior.sample((num_sims,), generator=gen)
+    x = slcp_simulator(theta, generator=gen)
+    inference = NLE(prior=task.prior, density_estimator="nsf")
+    inference.append_simulations(theta, x)
+    f0, b0 = rqs.forward_launches, rqs.backward_launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "Maximum number of epochs reached"
+        inference.train(max_num_epochs=1, generator=gen)  # warm-up; builds the net
+        steps0 = inference._opt_steps
+        _, t_train = sync_time(torch, lambda: inference.train(
+            max_num_epochs=epochs, resume_training=True, generator=gen))
+    steps = inference._opt_steps - steps0
+    train_forward, train_backward = rqs.forward_launches - f0, rqs.backward_launches - b0
+    check(train_forward > 0 and train_backward > 0, "NLE training bypassed a kernel")
+    losses = inference.summary["training_loss"]
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], f"NLE losses {losses}")
+
+    posterior = inference.build_posterior()
+    est = posterior.potential_fn.likelihood_estimator
+    passes = count_calls(est.net, "log_prob")
+    n_spline = spline_layers(est.net)
+    x_o = slcp_simulator(task.prior.sample((1,), generator=gen), generator=gen)
+
+    def sample():
+        return posterior.sample((NLE_CHAINS * NLE_SAMPLES,), x=x_o, generator=gen,
+                                num_chains=NLE_CHAINS, warmup_steps=NLE_WARMUP)
+
+    f1 = rqs.forward_launches
+    with FsmCounts(torch, fsm, strict=device.type == "cuda"):
+        sample()
+    with FsmCounts(torch, fsm) as counts:
+        samples, seconds = sync_time(torch, sample)
+    wall, busy, fwd_s, _, n_ops = profile_shares(torch, sample)
+    launches = rqs.forward_launches - f1
+    check(launches == n_spline * passes[0],
+          f"{launches} forward launches for {passes[0]} potential evaluations")
+    check(tuple(samples.shape) == (NLE_CHAINS * NLE_SAMPLES, 5), f"NLE samples {tuple(samples.shape)}")
+    check(bool(torch.isfinite(samples).all()), "non-finite NLE sample")
+    check(bool(task.prior.within_support(samples).all()), "NLE sample outside the prior")
+    runs = 3
+    emit("nle_slcp", params=sum(p.numel() for p in est.net.parameters()), spline_layers=n_spline,
+         simulations=num_sims, epochs_timed=epochs, train_s=t_train, steps_per_s=steps / t_train,
+         training_loss=losses, training_forward_launches=train_forward,
+         training_backward_launches=train_backward, chains=NLE_CHAINS, warmup=NLE_WARMUP,
+         samples_per_chain=NLE_SAMPLES, seconds=seconds,
+         nle_slice_samples_per_sec=NLE_CHAINS * NLE_SAMPLES / seconds, **counts.fields(seconds),
+         host_ms_per_iteration=seconds / max(counts.iterations, 1) * 1e3,
+         potential_evaluations_per_run=passes[0] / runs, forward_launches_per_run=launches / runs,
+         forward_launch_n=NLE_CHAINS * 4, init_candidates_launch_n=10_000 * 4,
+         profiled_run={"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+                       "device_ops": n_ops, "spline_forward_s": fwd_s,
+                       "spline_forward_share_of_busy": fwd_s / busy if busy else None})
+
+
+def nle_two_moons(torch, rqs, device, seed, num_sims=10_000, max_epochs=60, num_chains=100,
+                  warmup=100, num_samples=5_000):
+    """two_moons NLE-NSF to early stopping (at most ``max_epochs``), then
+    ``num_samples`` draws of ``num_chains`` slice chains per observation of
+    ``two_moons.npz`` and a C2ST against as many of its reference samples.
+    Returns the posterior."""
+    import warnings
+
+    from sbi_tpu_torch.inference import NLE, simulate_for_sbi
+    from sbi_tpu_torch.simulators import get_task
+    from sbi_tpu_torch.utils import c2st_torch
+
+    gen = torch.Generator(device=device).manual_seed(seed + 90)
+    task = get_task("two_moons", device=device)
+    theta, x = simulate_for_sbi(task.simulator, task.prior, num_sims, generator=gen)
+    inference = NLE(prior=task.prior, density_estimator="nsf")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, t_train = sync_time(torch, lambda: inference.append_simulations(theta, x).train(
+            max_num_epochs=max_epochs, generator=gen))
+    posterior = inference.build_posterior(
+        mcmc_parameters=dict(num_chains=num_chains, warmup_steps=warmup))
+    observations, references = reference_posteriors("two_moons")
+    scores, sample_s = [], []
+    for x_o, ref in zip(observations, references):
+        samples, t = sync_time(torch, lambda: posterior.sample(
+            (num_samples,), x=torch.as_tensor(x_o, device=device), generator=gen))
+        check(bool(torch.isfinite(samples).all()), "non-finite NLE posterior sample")
+        check(bool(task.prior.within_support(samples).all()), "NLE sample outside the prior")
+        ref = torch.as_tensor(ref[:num_samples], device=device)
+        scores.append(float(c2st_torch(samples, ref, generator=gen)))
+        sample_s.append(t)
+    mean = sum(scores) / len(scores)
+    epochs = inference.summary["epochs_trained"][-1]
+    emit("nle_two_moons", simulations=num_sims, epochs=epochs, max_epochs=max_epochs,
+         early_stopped=epochs < max_epochs, train_s=t_train,
+         steps_per_s=inference._opt_steps / t_train,
+         best_validation_loss=inference.summary["best_validation_loss"][-1],
+         chains=num_chains, warmup=warmup, samples=num_samples, sample_s=sample_s,
+         c2st=scores, c2st_mean=mean,
+         c2st_bar={"mean": NLE_C2ST_MEAN_MAX, "each": NLE_C2ST_EACH_MAX},
+         sbi_tpu_reference=SBI_TPU_NLE_TWO_MOONS)
+    check(mean <= NLE_C2ST_MEAN_MAX and max(scores) <= NLE_C2ST_EACH_MAX, f"NLE two_moons C2ST {scores}")
+    return posterior
+
+
+def mcmc_batched(torch, rqs, device, seed, posterior, npe, num_obs=8, num_samples=1_000,
+                 num_checked=2, hidden=50, npe_mcmc_samples=300):
+    """``MCMCPosterior.sample_batched`` over ``num_obs`` observations of
+    ``two_moons_ref.npz`` in one sampler run (each of the first
+    ``num_checked`` columns held to a ``sample`` at its observation by
+    C2ST; one draw per chain after the warmup, so that the draws are close
+    to independent), and ``DirectPosterior.sample_batched`` with a prior
+    box that a random NSF posterior never reaches, so that the default
+    ``"mcmc"`` policy fills the starved observations; then
+    ``npe_mcmc_samples`` draws of the NPE trainer ``npe``'s
+    ``build_posterior(sample_with="mcmc")``."""
+    from sbi_tpu_torch.inference.posteriors import DirectPosterior
+    from sbi_tpu_torch.neural_nets import posterior_nn
+    from sbi_tpu_torch.simulators import get_task, two_moons_simulator
+    from sbi_tpu_torch.utils import BoxUniform, c2st_torch
+
+    gen = torch.Generator(device=device).manual_seed(seed + 100)
+    task = get_task("two_moons", device=device)
+    observations, _ = reference_posteriors("two_moons_ref")
+    xs = torch.as_tensor(observations[:num_obs], device=device)
+    out, t_batched = sync_time(torch, lambda: posterior.sample_batched(
+        (num_samples,), x=xs, generator=gen, num_chains=num_samples))
+    check(tuple(out.shape) == (num_samples, num_obs, 2), f"sample_batched shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "non-finite batched sample")
+    check(bool(task.prior.within_support(out.reshape(-1, 2)).all()), "batched sample outside the prior")
+    scores = [float(c2st_torch(out[:, b], posterior.sample(
+        (num_samples,), x=xs[b], generator=gen, num_chains=num_samples), generator=gen))
+        for b in range(num_checked)]
+    check(max(scores) <= BATCHED_C2ST_MAX, f"sample_batched vs sample C2ST {scores}")
+
+    theta = task.prior.sample((2_000,), generator=gen)
+    est = posterior_nn("nsf", hidden_features=hidden, device=device,
+                       generator=torch.Generator().manual_seed(seed + 100))(
+        theta, two_moons_simulator(theta, generator=gen))
+    far = BoxUniform(20 * torch.ones(2), 21 * torch.ones(2), device=device)
+    direct = DirectPosterior(est, far)
+    i0, f0 = rqs.inverse_launches, rqs.forward_launches
+    fills, t_fill = sync_time(torch, lambda: direct.sample_batched(
+        (50,), x=xs[:2], generator=gen, max_total_proposals=512))
+    check(rqs.inverse_launches > i0 and rqs.forward_launches > f0, "the starvation fill bypassed a kernel")
+    check(tuple(fills.shape) == (50, 2, 2), f"fill shape {tuple(fills.shape)}")
+    check(bool(torch.isfinite(fills).all()), "non-finite MCMC fill")
+    check(bool(far.within_support(fills.reshape(-1, 2)).all()), "MCMC fill outside the prior box")
+    fill_forward, fill_inverse = rqs.forward_launches - f0, rqs.inverse_launches - i0
+
+    npe_posterior = npe.build_posterior(sample_with="mcmc",
+                                        mcmc_parameters=dict(num_chains=100, warmup_steps=50))
+    f0 = rqs.forward_launches
+    npe_draws, t_npe = sync_time(torch, lambda: npe_posterior.sample(
+        (npe_mcmc_samples,), x=xs[0], generator=gen))
+    check(rqs.forward_launches > f0, "NPE's MCMC posterior bypassed the forward kernel")
+    check(tuple(npe_draws.shape) == (npe_mcmc_samples, 2), f"NPE MCMC shape {tuple(npe_draws.shape)}")
+    check(bool(torch.isfinite(npe_draws).all()), "non-finite NPE MCMC sample")
+    check(bool(task.prior.within_support(npe_draws).all()), "NPE MCMC sample outside the prior")
+    emit("mcmc_batched", observations=num_obs, samples=num_samples, sample_batched_s=t_batched,
+         c2st_vs_sample=scores, starvation_fill_s=t_fill, fill_forward_launches=fill_forward,
+         fill_inverse_launches=fill_inverse, npe_mcmc_samples=npe_mcmc_samples, npe_mcmc_s=t_npe,
+         npe_mcmc_forward_launches=rqs.forward_launches - f0)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -909,18 +1252,27 @@ def main(argv=None) -> int:
          warm="the working set (35 MB at n = 300,000) stays in the 50 MB L2, as after the conditioner writes it",
          cold=f"{FLUSH_BYTES} bytes written before each call, outside the timed span")
 
-    # 5-10. The main paths, serving then training: each path's counts are
-    # zeroed just before it and read just after, and each of its kernels
-    # must have launched.
+    # 5-16. The main paths, serving, training, then NLE and MCMC: each
+    # path's counts are zeroed just before it and read just after, and each
+    # of its kernels must have launched.
+    from sbi_tpu_torch.samplers.mcmc import slice_fsm
+
+    trained = {}  # the two_moons NPE trainer, sampled by MCMC on the nle_mcmc path
     paths = (
         ("serving", ("forward", "inverse"), lambda: (
             slcp_path(torch, rqs, device, args.seed),
             two_moons_path(torch, rqs, device, args.seed))),
         ("training", ("forward", "inverse", "backward"), lambda: (
             slcp_training(torch, rqs, device, args.seed),
-            two_moons_training(torch, rqs, device, args.seed),
+            trained.setdefault("npe", two_moons_training(torch, rqs, device, args.seed)),
             snpe_two_rounds(torch, rqs, device, args.seed),
             maf_canonical(torch, device, args.seed))),
+        ("nle_mcmc", ("forward", "backward"), lambda: (
+            slice_gaussian(torch, slice_fsm, device, args.seed),
+            slcp_exact_slice(torch, slice_fsm, device, args.seed),
+            nle_slcp(torch, rqs, slice_fsm, device, args.seed),
+            mcmc_batched(torch, rqs, device, args.seed,
+                         nle_two_moons(torch, rqs, device, args.seed), trained["npe"]))),
     )
     by_path = {}
     for path, kernels_of_path, drive in paths:
@@ -933,7 +1285,7 @@ def main(argv=None) -> int:
     launches = {k: sum(c[k] for c in by_path.values()) for k in ("forward", "inverse", "backward")}
     emit("launches", by_path=by_path, total=launches)
 
-    # 11. The kernels line
+    # 17. The kernels line
     kernels = []
     for inverse in (False, True):
         t = timings[inverse]
@@ -945,6 +1297,8 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "shape": f"n={t['n']}, K={t['K']}",
+            "ms_at_mcmc_n": t["sizes"][str(NLE_CHAINS * 4)]["warm"]["device_ms"],
+            "bound_ms_at_mcmc_n": t["sizes"][str(NLE_CHAINS * 4)]["bound_ms"],
         })
     kernels.append({
         "name": "rqs_spline_backward", "route": "cuda", "source": SOURCE,

@@ -1,29 +1,39 @@
-"""Inference: the NPE trainers, ``infer``, and the direct posterior.
+"""Inference: the NPE and NLE trainers, ``infer``, and the direct and MCMC
+posteriors.
 
 Ported so far: ``NeuralInference``, ``PosteriorEstimatorTrainer``, NPE-C
-(``NPE``, ``NPE_C``, ``SNPE``, ``SNPE_C``, ``APT``), ``infer``,
-``simulate_for_sbi`` and ``DirectPosterior``. The other names of
-``sbi_tpu.inference`` come with later slices and raise
-``NotImplementedError`` when asked for.
+(``NPE``, ``NPE_C``, ``SNPE``, ``SNPE_C``, ``APT``),
+``LikelihoodEstimatorTrainer`` and NLE-A (``NLE``, ``NLE_A``, ``SNLE``,
+``SNLE_A``, ``SNL``), ``infer``, ``simulate_for_sbi``, ``DirectPosterior``,
+``MCMCPosterior`` (vectorized slice sampling) and the posterior and
+likelihood potentials. The other names of ``sbi_tpu.inference`` come with
+later slices and raise ``NotImplementedError`` when asked for.
 """
 
 from ..utils.simulation_utils import simulate_for_sbi
-from .posteriors import DirectPosterior, NeuralPosterior
+from .posteriors import DirectPosterior, MCMCPosterior, NeuralPosterior
+from .potentials.likelihood_based_potential import (
+    LikelihoodBasedPotential,
+    likelihood_estimator_based_potential,
+)
 from .potentials.posterior_based_potential import posterior_estimator_based_potential
 from .trainers.base import NeuralInference, check_if_proposal_has_default_x, infer
+from .trainers.nle.nle_a import NLE, NLE_A, SNL, SNLE, SNLE_A, LikelihoodEstimatorTrainer
 from .trainers.npe.npe_base import PosteriorEstimatorTrainer
 from .trainers.npe.npe_c import APT, NPE, NPE_C, SNPE, SNPE_C
 
-METHOD_REGISTRY = {"NPE": NPE, "NPE_C": NPE_C, "SNPE": SNPE, "SNPE_C": SNPE_C, "APT": APT}
+METHOD_REGISTRY = {
+    "NPE": NPE, "NPE_C": NPE_C, "SNPE": SNPE, "SNPE_C": SNPE_C, "APT": APT,
+    "NLE": NLE, "NLE_A": NLE_A, "SNLE": SNLE, "SNLE_A": SNLE_A, "SNL": SNL,
+}
 
 _LATER_SLICE_NAMES = frozenset((
-    "NLE_A", "NLE", "SNLE", "SNLE_A", "SNL", "MNLE",
+    "MNLE",
     "NRE_A", "SNRE_A", "AALR", "NRE_B", "SNRE_B", "SNRE", "SRE", "NRE", "NRE_C", "SNRE_C",
     "CNRE", "BNRE", "NPE_A", "SNPE_A", "NPE_B", "SNPE_B", "MNPE", "NPE_PFN", "FMPE", "NPSE",
     "VectorFieldTrainer", "MarginalTrainer", "MCABC", "ABC", "SMCABC", "SMC",
-    "MCMCPosterior", "RejectionPosterior", "ImportanceSamplingPosterior", "VIPosterior",
+    "RejectionPosterior", "ImportanceSamplingPosterior", "VIPosterior",
     "VectorFieldPosterior", "EnsemblePosterior", "vector_field_estimator_based_potential",
-    "LikelihoodBasedPotential", "likelihood_estimator_based_potential",
     "mixed_likelihood_estimator_based_potential", "RatioBasedPotential",
     "ratio_estimator_based_potential",
 ))
@@ -43,8 +53,9 @@ def __getattr__(name):
 
 
 __all__ = [
-    "APT", "DirectPosterior", "METHOD_REGISTRY", "NPE", "NPE_C", "NeuralInference",
-    "NeuralPosterior", "PosteriorEstimatorTrainer", "SNPE", "SNPE_C",
-    "check_if_proposal_has_default_x", "infer", "posterior_estimator_based_potential",
-    "simulate_for_sbi",
+    "APT", "DirectPosterior", "LikelihoodBasedPotential", "LikelihoodEstimatorTrainer",
+    "MCMCPosterior", "METHOD_REGISTRY", "NLE", "NLE_A", "NPE", "NPE_C", "NeuralInference",
+    "NeuralPosterior", "PosteriorEstimatorTrainer", "SNL", "SNLE", "SNLE_A", "SNPE", "SNPE_C",
+    "check_if_proposal_has_default_x", "infer", "likelihood_estimator_based_potential",
+    "posterior_estimator_based_potential", "simulate_for_sbi",
 ]

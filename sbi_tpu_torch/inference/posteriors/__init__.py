@@ -1,4 +1,5 @@
 from .base_posterior import NeuralPosterior
 from .direct_posterior import DirectPosterior
+from .mcmc_posterior import MCMCPosterior
 
-__all__ = ["NeuralPosterior", "DirectPosterior"]
+__all__ = ["NeuralPosterior", "DirectPosterior", "MCMCPosterior"]

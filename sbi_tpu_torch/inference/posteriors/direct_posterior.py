@@ -2,9 +2,8 @@
 leakage-corrected log_prob.
 
 PyTorch counterpart of ``sbi_tpu/inference/posteriors/direct_posterior.py``.
-``sample_batched``'s ``starvation_policy="mcmc"`` fill needs MCMC, which
-comes with a later slice: a starved observation under that policy raises
-``NotImplementedError``.
+``sample_batched`` fills observations that starve in the rejection loop by
+one vectorized MCMC run over them (``starvation_policy="mcmc"``).
 """
 
 from __future__ import annotations
@@ -110,9 +109,9 @@ class DirectPosterior(NeuralPosterior):
 
         Observations still starved after ``max_total_proposals`` proposals
         are not filled with duplicates. ``starvation_policy``:
-          - ``"mcmc"`` (default): would sample the starved observations'
-            truncated posteriors with MCMC; MCMC comes with a later slice,
-            so this raises ``NotImplementedError`` when an observation starves.
+          - ``"mcmc"`` (default): their columns are replaced by exact samples
+            of their truncated posteriors, from one vectorized slice-sampling
+            run over all of them (``MCMCPosterior.sample_batched``).
           - ``"raise"``: RuntimeError naming the starved acceptance rate.
         """
         if starvation_policy not in ("mcmc", "raise"):
@@ -166,13 +165,27 @@ class DirectPosterior(NeuralPosterior):
                     "mass outside the prior support for these x. Retrain, or "
                     "use starvation_policy='mcmc' / sample_with='mcmc'."
                 )
-            raise NotImplementedError(
-                f"sample_batched: {len(starved)}/{B} observations starved after "
-                f"{proposals} proposals; starvation_policy='mcmc' fills them by "
-                "MCMC, which comes with a later slice of the port. Use "
-                "starvation_policy='raise' or raise max_total_proposals."
-            )
+            out = self._mcmc_fill_starved(collected[: S * B].reshape(S, B, D), x, starved, S,
+                                          generator)
+            return out.reshape(tuple(sample_shape) + (B, D))
         return collected[: S * B].reshape(tuple(sample_shape) + (B, D))
+
+    def _mcmc_fill_starved(self, collected, x, starved, S, generator):
+        """Replace the starved observations' columns of ``collected`` (S, B,
+        D) with samples of their truncated posteriors from one vectorized
+        MCMC run over all of them."""
+        from .mcmc_posterior import MCMCPosterior
+
+        mcmc = MCMCPosterior(
+            self.potential_fn,
+            proposal=self.prior,
+            theta_transform=self.theta_transform,
+            num_chains=min(100, max(20, S // 10)),
+            warmup_steps=200,
+        )
+        idx = torch.as_tensor(starved, device=self._device)
+        collected[:, idx] = mcmc.sample_batched((S,), x=x[idx], generator=generator)
+        return collected
 
     # ---------------------------------------------------------------- log_prob
     def log_prob(

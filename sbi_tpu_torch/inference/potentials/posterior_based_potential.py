@@ -1,8 +1,8 @@
 """Posterior-based potential: log q(theta | x_o), -inf outside prior support.
 
 PyTorch counterpart of
-``sbi_tpu/inference/potentials/posterior_based_potential.py``. The batched
-potential for MCMC (``batched_over_x``) comes with the MCMC slice.
+``sbi_tpu/inference/potentials/posterior_based_potential.py``, with the
+batched potential that ``MCMCPosterior.sample_batched`` runs.
 """
 
 from __future__ import annotations
@@ -34,6 +34,21 @@ class PosteriorBasedPotential(BasePotential):
             in_support = within_support(self.prior, theta)
             lp = torch.where(in_support, lp, torch.full_like(lp, -math.inf))
         return lp
+
+    def batched_over_x(self, xs, reps: int):
+        """A potential for batched observations: chain i of B * reps is
+        scored against observation i // reps."""
+        est, prior = self.posterior_estimator, self.prior
+        xs = torch.atleast_2d(torch.as_tensor(xs, dtype=torch.float32, device=self.device))
+        xs_rep = xs.repeat_interleave(reps, dim=0)
+
+        def potential(theta: torch.Tensor) -> torch.Tensor:
+            lp = est.log_prob(theta[None], xs_rep)[0]
+            if prior is not None:
+                lp = torch.where(within_support(prior, theta), lp, torch.full_like(lp, -math.inf))
+            return lp
+
+        return potential
 
 
 def posterior_estimator_based_potential(

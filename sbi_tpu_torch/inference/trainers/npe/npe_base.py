@@ -4,8 +4,8 @@ PyTorch counterpart of ``sbi_tpu/inference/trainers/npe/npe_base.py``:
 ``append_simulations(..., proposal=)`` round bookkeeping, ``train()``, the
 first-round loss -log q(theta | x) (optionally weighted by a calibration
 kernel), the lazy net build from the first round's data, and
-``build_posterior(sample_with="direct")``. The other samplers and
-``posterior_parameters`` come with later slices.
+``build_posterior(sample_with="direct")`` and ``"mcmc"``. The other
+samplers and ``posterior_parameters`` come with later slices.
 """
 
 from __future__ import annotations
@@ -180,21 +180,37 @@ class PosteriorEstimatorTrainer(NeuralInference):
         importance_sampling_parameters: Optional[Dict] = None,
         posterior_parameters=None,
     ):
-        """A ``DirectPosterior`` over a frozen copy of the estimator and the
-        prior. The other ``sample_with`` values come with later slices."""
+        """A ``DirectPosterior`` (``sample_with="direct"``) or an
+        ``MCMCPosterior`` over the posterior potential (``"mcmc"``), over a
+        frozen copy of the estimator and the prior. The other
+        ``sample_with`` values come with later slices."""
         from ...posteriors.direct_posterior import DirectPosterior
+        from ...posteriors.mcmc_posterior import MCMCPosterior
+        from ...potentials.posterior_based_potential import posterior_estimator_based_potential
 
         if posterior_parameters is not None:
             raise NotImplementedError(f"build_posterior(posterior_parameters=...) {_LATER_SLICE}.")
-        if sample_with != "direct":
+        if sample_with not in ("direct", "mcmc"):
             raise NotImplementedError(f"build_posterior(sample_with='{sample_with}') {_LATER_SLICE}.")
         prior = prior if prior is not None else self._prior
         estimator = density_estimator if density_estimator is not None else self._neural_net
         if estimator is None:
             raise ValueError("Run `.train()` first or pass a density_estimator.")
-        self._posterior = DirectPosterior(
-            posterior_estimator=estimator.snapshot(),
-            prior=prior,
-            **(direct_sampling_parameters or {}),
-        )
+        estimator = estimator.snapshot()
+        if sample_with == "direct":
+            self._posterior = DirectPosterior(
+                posterior_estimator=estimator,
+                prior=prior,
+                **(direct_sampling_parameters or {}),
+            )
+        else:
+            potential_fn, theta_transform = posterior_estimator_based_potential(
+                estimator, prior, x_o=None)
+            self._posterior = MCMCPosterior(
+                potential_fn,
+                theta_transform=theta_transform,
+                proposal=prior,
+                method=mcmc_method,
+                **(mcmc_parameters or {}),
+            )
         return self._posterior

@@ -1,3 +1,3 @@
-from .factory import posterior_nn
+from .factory import likelihood_nn, posterior_nn
 
-__all__ = ["posterior_nn"]
+__all__ = ["likelihood_nn", "posterior_nn"]

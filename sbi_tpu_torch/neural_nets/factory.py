@@ -1,8 +1,8 @@
 """String -> builder factories, returning ``build_fn(batch_theta, batch_x)``
 closures so nets are shaped and z-scored from the first data batch
 (PyTorch counterpart of ``sbi_tpu/neural_nets/factory.py``). The port
-has ``model="nsf"`` and ``model="maf"``; the other models come with later
-slices.
+has ``model="nsf"`` and ``model="maf"``, for posteriors and for
+likelihoods; the other models come with later slices.
 """
 
 from __future__ import annotations
@@ -47,5 +47,39 @@ def posterior_nn(
             embedding_net=embedding_net,
             **kwargs,
         )
+
+    return build_fn
+
+
+def likelihood_nn(
+    model: str = "maf",
+    z_score_theta: Optional[str] = "independent",
+    z_score_x: Optional[str] = "independent",
+    hidden_features: int = 50,
+    num_transforms: int = 5,
+    num_bins: int = 10,
+    embedding_net=None,
+    num_components: int = 10,
+    **kwargs,
+) -> Callable:
+    """Density-estimator builder for NLE: a density over x conditioned on
+    theta, ``posterior_nn`` with (input, condition) swapped.
+
+    Returns ``build_fn(batch_theta, batch_x) -> ConditionalDensityEstimator``.
+    """
+    inner = posterior_nn(
+        model,
+        z_score_theta=z_score_x,  # roles swapped: the input is x
+        z_score_x=z_score_theta,
+        hidden_features=hidden_features,
+        num_transforms=num_transforms,
+        num_bins=num_bins,
+        embedding_net=embedding_net,
+        num_components=num_components,
+        **kwargs,
+    )
+
+    def build_fn(batch_theta, batch_x):
+        return inner(batch_x, batch_theta)
 
     return build_fn

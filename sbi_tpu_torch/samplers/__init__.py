@@ -1,1 +1,1 @@
-from . import rejection
+from . import mcmc, rejection

@@ -1,8 +1,8 @@
-"""Benchmark tasks of the NSF serving path: two_moons and slcp.
+"""Benchmark tasks of the NSF path: two_moons and slcp.
 
-PyTorch counterpart of ``sbi_tpu/simulators/tasks.py`` (simulators and
-``get_task`` for these two tasks). Simulators draw their noise from an
-explicit ``torch.Generator`` on the device of ``theta``.
+PyTorch counterpart of ``sbi_tpu/simulators/tasks.py`` (simulators, SLCP's
+exact likelihood and ``get_task`` for these two tasks). Simulators draw
+their noise from an explicit ``torch.Generator`` on the device of ``theta``.
 """
 
 from __future__ import annotations
@@ -60,6 +60,29 @@ def slcp_simulator(theta, generator: Optional[torch.Generator] = None) -> torch.
     return draws.reshape(n, 8)
 
 
+def slcp_log_likelihood(theta: torch.Tensor, x) -> torch.Tensor:
+    """Exact log p(x | theta); theta (..., 5), x (8,) one observation (four
+    2-D draws) -> (...,). Mirror of ``sbi_tpu/simulators/tasks.py:115``.
+
+    The 2 x 2 Cholesky factor and the triangular solve are written out:
+    ``torch.linalg.cholesky`` checks its result on the host, a device sync
+    on every potential evaluation of an MCMC run."""
+    x = torch.as_tensor(x, dtype=torch.float32, device=theta.device).reshape(4, 2)
+    cov = _slcp_cov(theta)
+    c11 = cov[..., 0, 0] + 1e-6
+    c12 = cov[..., 0, 1]
+    c22 = cov[..., 1, 1] + 1e-6
+    l11 = torch.sqrt(c11)
+    l21 = c12 / l11
+    l22 = torch.sqrt(c22 - l21**2)
+    diff = x - theta[..., None, :2]  # (..., 4, 2)
+    y1 = diff[..., 0] / l11[..., None]
+    y2 = (diff[..., 1] - l21[..., None] * y1) / l22[..., None]
+    half_logdet = torch.log(l11) + torch.log(l22)
+    lp_each = -0.5 * (y1**2 + y2**2) - half_logdet[..., None] - math.log(2 * math.pi)
+    return lp_each.sum(-1)
+
+
 @dataclass
 class Task:
     name: str
@@ -93,6 +116,7 @@ def get_task(name: str, device=None) -> Task:
             simulator=slcp_simulator,
             theta_dim=5,
             x_dim=8,
+            log_likelihood=slcp_log_likelihood,
         )
     if name in ("gaussian_linear", "linear_mvg_2d", "gaussian_mixture"):
         raise NotImplementedError(

@@ -7,6 +7,7 @@ from .distributions import (
 )
 from .metrics import c2st_torch
 from .sbiutils import (
+    draw_from_proposal,
     ensure_theta_batched,
     handle_invalid_x,
     next_generator,
@@ -26,5 +27,6 @@ from .transforms import (
     IdentityTransform,
     Transform,
     mcmc_transform,
+    transformed_potential,
 )
 from .tracking import InMemoryTracker, Tracker

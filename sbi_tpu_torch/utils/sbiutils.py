@@ -240,6 +240,14 @@ def within_support(distribution, samples: torch.Tensor) -> torch.Tensor:
     return torch.isfinite(distribution.log_prob(samples))
 
 
+def draw_from_proposal(proposal, generator: Optional[torch.Generator], num_samples: int) -> torch.Tensor:
+    """Sample ``(num_samples, *event)`` from a prior or from a posterior
+    used as a proposal (mirror of ``sbi_tpu/utils/sbiutils.py:43``). The JAX
+    package tells the two apart because their ``sample`` signatures differ;
+    here both are ``sample(sample_shape, generator=...)``."""
+    return proposal.sample((num_samples,), generator=generator)
+
+
 def ensure_theta_batched(theta, device=None) -> torch.Tensor:
     """float32 tensor with a batch axis; ``device=None`` keeps a tensor's
     device (numpy input lands on the CPU)."""

@@ -149,3 +149,16 @@ def mcmc_transform(prior: Distribution, enable_transform: bool = True) -> Transf
         return IdentityTransform()
     num_dims = int(prior.event_shape[0]) if prior.event_shape else 1
     return _transform_for(prior, num_dims)
+
+
+def transformed_potential(potential_fn, theta_transform: Transform):
+    """Compose a potential with a transform so that MCMC runs unconstrained
+    (mirror of ``sbi_tpu/utils/transforms.py:289``):
+    ``pot_u(u) = potential(T.inv(u)) + log|det dT.inv/du|``, the log-det
+    summed per row."""
+
+    def transformed(u):
+        theta, ldj = theta_transform.inverse_and_log_det(u)
+        return potential_fn(theta) + ldj
+
+    return transformed

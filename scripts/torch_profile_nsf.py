@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time goes in sbi_tpu_torch's NSF serving and training paths,
-on one GPU.
+"""Where the time goes in sbi_tpu_torch's NSF serving, training and NLE
+sampling paths, on one GPU.
 
 Builds the SLCP posterior of ``chip_smoke.py`` (5 coupling transforms,
 hidden 50, 10 bins, random weights from ``--seed``), warms it up, then runs
@@ -12,8 +12,11 @@ times), the device's idle share, the number of kernel launches, the device
 time of the heaviest kernels by name and the RQ-spline kernels' share
 (forward and backward). The training line adds the host's heaviest
 operations by their own CPU time and the number of host syncs in an epoch
-(``torch.cuda.set_sync_debug_mode``). Needs CUDA; run from the repository
-root:
+(``torch.cuda.set_sync_debug_mode``). Last, SLCP's NLE likelihood at the
+same width (random weights) is sampled by ``MCMCPosterior`` with 1,000
+slice chains (warmup 10, 5 samples a chain) and profiled the same way; its
+line adds the FSM iterations, host syncs, device ops and host time per
+iteration. Needs CUDA; run from the repository root:
 
     python3 scripts/torch_profile_nsf.py
 """
@@ -151,6 +154,35 @@ def main(argv=None) -> int:
                       "steps": steps, "steps_per_s_profiled": steps / result["wall_s"],
                       "device_ops_per_step": result["device_ops"] / steps,
                       "host_syncs_per_epoch": syncs, "device": smi, **result}), flush=True)
+
+    from sbi_tpu_torch.inference.posteriors import MCMCPosterior
+    from sbi_tpu_torch.inference.potentials.likelihood_based_potential import (
+        likelihood_estimator_based_potential,
+    )
+    from sbi_tpu_torch.neural_nets import likelihood_nn
+    from sbi_tpu_torch.samplers.mcmc import slice_fsm
+
+    lik = likelihood_nn("nsf", device=device, generator=torch.Generator().manual_seed(args.seed))(
+        theta, slcp_simulator(theta, generator=gen))
+    chip_smoke.perturb_heads(torch, lik, gen)
+    potential, transform = likelihood_estimator_based_potential(lik, task.prior, x_o)
+    mcmc = MCMCPosterior(potential, proposal=task.prior, theta_transform=transform)
+
+    def nle_sample():
+        mcmc.sample((5_000,), generator=gen, num_chains=1_000, warmup_steps=10)
+
+    nle_sample()  # warm-up
+    with chip_smoke.FsmCounts(torch, slice_fsm) as counts:
+        result = profile(torch, nle_sample, top=12)
+    syncs = host_syncs(torch, nle_sample)
+    n = max(counts.iterations, 1)
+    print(json.dumps({"call": "nle_slice_sample", "chains": 1_000, "warmup": 10,
+                      "samples_per_chain": 5, "fsm_iterations": counts.iterations,
+                      "fsm_host_syncs": counts.syncs, "host_syncs": syncs,
+                      "device_ops_per_iteration": result["device_ops"] / n,
+                      "host_us_per_iteration_profiled": result["wall_s"] / n * 1e6,
+                      "device_us_per_iteration": result["device_busy_s"] / n * 1e6,
+                      "device": smi, **result}), flush=True)
     return 0
 
 

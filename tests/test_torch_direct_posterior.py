@@ -113,12 +113,16 @@ def test_sample_batched_matches_jax_c2st():
 
 def test_starvation_policy():
     """A prior box the flow never reaches: "raise" raises as in JAX; the
-    default "mcmc" fill needs MCMC, which is not ported yet."""
+    default "mcmc" fill samples the starved observations' truncated
+    posteriors, which lie inside the box."""
     jpost, tpost, _, x = make_posteriors(2, low=20.0, high=21.0)
     with pytest.raises(RuntimeError, match="starved"):
         jpost.sample_batched((50,), jnp.asarray(x[:2]), key=jax.random.PRNGKey(3),
                              max_total_proposals=512, starvation_policy="raise")
     with pytest.raises(RuntimeError, match="starved"):
         tpost.sample_batched((50,), x[:2], max_total_proposals=512, starvation_policy="raise")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tpost.sample_batched((50,), x[:2], max_total_proposals=512)
+    filled = tpost.sample_batched((50,), x[:2], max_total_proposals=512,
+                                  generator=torch.Generator().manual_seed(3)).numpy()
+    assert filled.shape == (50, 2, 2)
+    assert np.isfinite(filled).all()
+    assert ((filled >= 20.0) & (filled <= 21.0)).all()

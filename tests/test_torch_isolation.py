@@ -54,7 +54,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, sbi_tpu_torch\n"
         "import sbi_tpu_torch.inference, sbi_tpu_torch.neural_nets, "
-        "sbi_tpu_torch.simulators, sbi_tpu_torch.utils.params_bridge\n"
+        "sbi_tpu_torch.simulators, sbi_tpu_torch.utils.params_bridge, "
+        "sbi_tpu_torch.samplers.mcmc, sbi_tpu_torch.inference.trainers.nle.nle_a\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'sbi_tpu')]\n"
         "assert not bad, bad\n"
@@ -114,6 +115,45 @@ def test_entry_points_default_to_cuda():
                       init_kwargs=dict(device="cpu", density_estimator=small),
                       train_kwargs=dict(max_num_epochs=1))
     assert posterior.sample((5,), x=np.zeros(2, np.float32)).shape == (5, 2)
+
+
+def test_nle_and_mcmc_default_to_cuda():
+    """NLE, MCMCPosterior (over a potential that names no device) and
+    infer(..., "NLE") raise without CUDA; with device="cpu" they run. HMC
+    is not ported yet."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+    from sbi_tpu_torch.inference import NLE, MCMCPosterior, infer
+    from sbi_tpu_torch.neural_nets import likelihood_nn
+    from sbi_tpu_torch.simulators import two_moons_simulator
+    from sbi_tpu_torch.utils import BoxUniform
+
+    prior = BoxUniform(-np.ones(2), np.ones(2), device="cpu")
+
+    def potential(theta):
+        return prior.log_prob(theta)
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NLE(prior=prior)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NLE(prior=prior, density_estimator=likelihood_nn("nsf"), device="cpu").append_simulations(
+            np.zeros((20, 2), np.float32), np.zeros((20, 2), np.float32)).train(max_num_epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MCMCPosterior(potential, proposal=prior)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        infer(two_moons_simulator, prior, "NLE", 50)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        MCMCPosterior(potential, proposal=prior, method="hmc", device="cpu")
+    samples = MCMCPosterior(potential, proposal=prior, num_chains=4, warmup_steps=5,
+                            device="cpu").sample((8,))
+    assert samples.shape == (8, 2) and samples.device == torch.device("cpu")
+    small = likelihood_nn("nsf", hidden_features=8, num_transforms=1, device="cpu")
+    trainer = NLE(prior=prior, density_estimator=small, device="cpu")
+    theta = prior.sample((50,))
+    trainer.append_simulations(theta, two_moons_simulator(theta)).train(max_num_epochs=1)
+    assert trainer._neural_net.device == torch.device("cpu")
+    posterior = trainer.build_posterior(mcmc_parameters=dict(num_chains=4, warmup_steps=5))
+    assert posterior.sample((8,), x=np.zeros(2, np.float32)).shape == (8, 2)
 
 
 def test_prior_on_another_device_than_the_trainer_raises():
