@@ -31,7 +31,19 @@ public entry points:
   samples/s, the device-busy share, and five forward launches per potential
   evaluation); two_moons NLE trained to early stopping and scored by C2ST;
   ``MCMCPosterior.sample_batched`` over 8 observations, and
-  ``DirectPosterior.sample_batched``'s MCMC fill of starved observations.
+  ``DirectPosterior.sample_batched``'s MCMC fill of starved observations;
+- ensembles: the spline's vmap rule (the TPU kernel's ``custom_vmap``
+  merge) at the ensemble step's shape, one launch per vmapped call and bit
+  for bit the members' separate calls (checked and timed with the kernels,
+  before the main paths); npe-nsf-ens8 at full width
+  (gaussian_linear, 30,000 simulations, 8 NSF members trained by
+  ``train_ensemble`` as one vmapped step: a deterministic step check
+  against single-model steps, ensemble and member steps/s, 5 + 5 spline
+  launches a step, the mixture posterior's C2ST against
+  ``gaussian_linear.npz``, ``sample_batched``, ``log_prob`` and
+  ``weight_by_evidence``); an SLCP NLE product of experts of 4 members
+  sampled by 1,000 slice chains (samples/s, no host sync inside a block,
+  five launches per potential evaluation for all members).
 
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero. The kernel launch counters are zeroed just before the main path
@@ -46,6 +58,7 @@ non-zero and prints no result. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -60,6 +73,9 @@ REPLACES = "sbi_tpu/ops/rqs_pallas.py:137"
 # Pallas) that the TPU kernel's custom_vjp takes its gradients from.
 REPLACES_BACKWARD = "sbi_tpu/ops/rqs_pallas.py:229"
 SOURCE = "sbi_tpu_torch/csrc/rqs.cu"
+# The TPU kernel's custom_vmap merge, ported as the vmap rules of the
+# spline's autograd Functions: a vmapped call launches these kernels once.
+VMAP_RULE = "sbi_tpu/ops/rqs_pallas.py:180"
 # Tolerances of kernel vs plain version, at spline parameters of std 0.3
 # (wider than the main path's conditioners give). Both compute in float32;
 # the softmax sums and cumulative knots are summed in another order, so
@@ -131,6 +147,33 @@ NLE_C2ST_MEAN_MAX, NLE_C2ST_EACH_MAX = 0.62, 0.68
 # side, one per chain: C2ST at most 0.6 (about 4 standard deviations above
 # 0.5 for 400 held-out points; another observation's draws read near 1).
 BATCHED_C2ST_MAX = 0.6
+# Ensembles. npe-nsf-ens8 (scripts/bm_round5.py:376-413): gaussian_linear
+# (10-D), 30,000 simulations, posterior_nn("nsf", hidden_features=100,
+# num_transforms=5, interleave_affine=True), 8 members trained as one vmapped
+# step, batch 200 (135 steps an epoch). The cut is epochs, never width or
+# members: at most ENS_EPOCHS (the members' validation loss was lowest at
+# epoch 2 or 3 in runs of 8 and 20 epochs on the H100, and rose after).
+# sbi_tpu read C2ST 0.5111 there after full training (bm_results_round5.csv,
+# n = 4,000, sklearn's C2ST); the bar here is the mixture's mean over
+# observations 0-2 of gaussian_linear.npz, 4,000 draws a side.
+ENS_MEMBERS, ENS_SIMS, ENS_HIDDEN, ENS_BATCH, ENS_EPOCHS = 8, 30_000, 100, 200, 5
+ENS_C2ST_MEAN_MAX, ENS_C2ST_EACH_MAX, ENS_DRAWS = 0.60, 0.65, 4_000
+ENS_PROFILED_STEPS = 20
+# One vmapped step from a common start against each member's own
+# single-model step on the same batch. The spline's per-element math does
+# not depend on the launch, but the conditioners' GEMMs run batched (one
+# bmm for all members) against one mm a member, which sums in another
+# order: losses within 1e-5 relative, each gradient tensor within 1e-4 of
+# its largest element. Adam's first step moves an element by ~lr * sign(g),
+# so an element whose gradient is at the rounding noise may move either
+# way: parameters after the step within 2 lr, and 99% of elements within
+# 1e-6.
+STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_PARAM_TIGHT, STEP_TIGHT_SHARE = 1e-5, 1e-4, 1e-6, 0.99
+# SLCP NLE-NSF product of experts (the nle-*-poe16 family of
+# bm_round5.py, cut to 4 members and 10,000 simulations): full width
+# (hidden 50, 5 transforms), a few epochs, then the nle_slcp sampling
+# configuration.
+POE_MEMBERS, POE_SIMS, POE_EPOCHS = 4, 10_000, 3
 SBI_TPU_NLE_TWO_MOONS = {"c2st_mean": 0.5842, "c2st": [0.5535, 0.6445, 0.5545],
                          "simulations": 2000, "density_estimator": "maf",
                          "classifier": "sklearn", "source": "bm_results_round1.csv:6"}
@@ -710,11 +753,13 @@ def spline_layers(net):
 def profile_shares(torch, fn):
     """Run ``fn`` under torch.profiler: wall seconds, device-busy seconds
     (summed device time of its kernels) and the spline kernels' device
-    seconds, forward and backward."""
+    seconds, forward and backward. Only device activity is recorded: the
+    host's operator events, a million in an MCMC run, took the profiler
+    minutes to collect and are not read here."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -724,6 +769,7 @@ def profile_shares(torch, fn):
     ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.device_time_total for e in ops) / 1e6
+    check(busy > 0, "the profiler recorded no device operation")
     bwd = sum(e.device_time_total for e in ops if "rqs_backward_kernel" in e.name) / 1e6
     fwd = sum(e.device_time_total for e in ops if "rqs_kernel" in e.name) / 1e6
     return wall, busy, fwd, bwd, len(ops)
@@ -1022,7 +1068,8 @@ def nle_slcp(torch, rqs, fsm, device, seed, num_sims=10_000, epochs=3):
     epochs, then 1,000 chains sampled through the likelihood potential: a
     warm run (strict: no host sync but the loop condition's), a timed run
     and a profiled one. Every potential evaluation, the init candidates'
-    one included, is one flow pass and one forward launch per coupling."""
+    one included, is one flow pass and one forward launch per coupling.
+    Returns the sampling figures."""
     import warnings
 
     from sbi_tpu_torch.inference import NLE
@@ -1062,7 +1109,9 @@ def nle_slcp(torch, rqs, fsm, device, seed, num_sims=10_000, epochs=3):
         sample()
     with FsmCounts(torch, fsm) as counts:
         samples, seconds = sync_time(torch, sample)
+    t0 = time.perf_counter()
     wall, busy, fwd_s, _, n_ops = profile_shares(torch, sample)
+    profiler_s = time.perf_counter() - t0 - wall
     launches = rqs.forward_launches - f1
     check(launches == n_spline * passes[0],
           f"{launches} forward launches for {passes[0]} potential evaluations")
@@ -1081,7 +1130,12 @@ def nle_slcp(torch, rqs, fsm, device, seed, num_sims=10_000, epochs=3):
          forward_launch_n=NLE_CHAINS * 4, init_candidates_launch_n=10_000 * 4,
          profiled_run={"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
                        "device_ops": n_ops, "spline_forward_s": fwd_s,
-                       "spline_forward_share_of_busy": fwd_s / busy if busy else None})
+                       "spline_forward_share_of_busy": fwd_s / busy if busy else None,
+                       "profiler_overhead_s": profiler_s})
+    return {"nle_slice_samples_per_sec": NLE_CHAINS * NLE_SAMPLES / seconds,
+            "fsm_iterations": counts.iterations,
+            "host_ms_per_iteration": seconds / max(counts.iterations, 1) * 1e3,
+            "device_busy_share": busy / wall}
 
 
 def nle_two_moons(torch, rqs, device, seed, num_sims=10_000, max_epochs=60, num_chains=100,
@@ -1191,6 +1245,417 @@ def mcmc_batched(torch, rqs, device, seed, posterior, npe, num_obs=8, num_sample
 
 
 # ---------------------------------------------------------------------------
+# Ensembles
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def recorded_launches(rqs):
+    """Records (kernel, n, tile load) of every kernel launch in the block,
+    by wrapping the launchers (which still count)."""
+    launches, launch, launch_bwd = [], rqs._launch, rqs._launch_backward
+
+    def forward(x, w, h, d, inverse, *rest):
+        launches.append(("inverse" if inverse else "forward", int(x.numel()), rqs.tile_load(w, h, d)))
+        return launch(x, w, h, d, inverse, *rest)
+
+    def backward(x, w, h, d, *rest):
+        launches.append(("backward", int(x.numel()), rqs.tile_load(w, h, d)))
+        return launch_bwd(x, w, h, d, *rest)
+
+    rqs._launch, rqs._launch_backward = forward, backward
+    try:
+        yield launches
+    finally:
+        rqs._launch, rqs._launch_backward = launch, launch_bwd
+
+
+def ensemble_merge(torch, rqs, device, seed):
+    """The spline's vmap rule (the counterpart of ``_rqs_flat_fn``) at the
+    ensemble step's shape: ``torch.func.vmap`` over ENS_MEMBERS members of
+    (ENS_BATCH, 5) elements, parameters as slices of one (..., 29) row, both
+    directions, without and with ``grad``. Each vmapped call must launch
+    its kernel once; its values and gradients must equal the members'
+    separate kernel calls bit for bit, and hold to the plain version at the
+    tolerances of ``kernel_checks``. Then the merged launch's device time
+    against ENS_MEMBERS launches of one member, and the host time of a
+    merged call against ENS_MEMBERS calls. These launches are checks, not
+    the main path's: the counters are restored."""
+    gen = torch.Generator(device=device).manual_seed(seed + 105)
+    K, rows, dims = ENS_MEMBERS, ENS_BATCH, 5
+    consts = (rqs.DEFAULT_MIN_BIN_WIDTH, rqs.DEFAULT_MIN_BIN_HEIGHT, rqs.DEFAULT_MIN_DERIVATIVE)
+    x = 1.5 * torch.randn(K, rows, dims, generator=gen, device=device)
+    p = PARAM_STD * torch.randn(K, rows, dims, 29, generator=gen, device=device)
+    gy = torch.randn(K, rows, dims, generator=gen, device=device)
+    gl = torch.randn(K, rows, dims, generator=gen, device=device)
+    saved = (rqs.forward_launches, rqs.inverse_launches, rqs.backward_launches)
+
+    def spline(inverse):
+        return lambda x_, p_: rqs.rational_quadratic_spline(
+            x_, p_[..., :10], p_[..., 10:20], p_[..., 20:], inverse)
+
+    def grad_of(inverse):
+        def f(x_, p_, gy_, gl_):
+            y, ld = spline(inverse)(x_, p_)
+            return (y * gy_).sum() + (ld * gl_).sum()
+        return torch.func.grad(f, argnums=(0, 1))
+
+    def counts():
+        return rqs.forward_launches, rqs.inverse_launches, rqs.backward_launches
+
+    out = {}
+    with recorded_launches(rqs) as loads:
+        for inverse in (False, True):
+            direction = "inverse" if inverse else "forward"
+            c0 = counts()
+            with torch.no_grad():
+                y_v, ld_v = torch.func.vmap(spline(inverse))(x, p)
+            c1 = counts()
+            gx_v, gp_v = torch.func.vmap(grad_of(inverse))(x, p, gy, gl)
+            c2 = counts()
+            spline_at = 1 if inverse else 0
+            check(c1[spline_at] - c0[spline_at] == 1 and sum(c1) - sum(c0) == 1,
+                  f"vmapped {direction} call: launches {c0} -> {c1}")
+            check(c2[spline_at] - c1[spline_at] == 1 and c2[2] - c1[2] == 1 and sum(c2) - sum(c1) == 2,
+                  f"vmapped {direction} grad: launches {c1} -> {c2}")
+            with torch.no_grad():
+                sep = [spline(inverse)(x[k], p[k]) for k in range(K)]
+            y_s, ld_s = torch.stack([a for a, _ in sep]), torch.stack([b for _, b in sep])
+            g_s = [grad_of(inverse)(x[k], p[k], gy[k], gl[k]) for k in range(K)]
+            gx_s, gp_s = torch.stack([a for a, _ in g_s]), torch.stack([b for _, b in g_s])
+            bitwise = {"values": bool(torch.equal(y_v, y_s) and torch.equal(ld_v, ld_s)),
+                       "gradients": bool(torch.equal(gx_v, gx_s) and torch.equal(gp_v, gp_s))}
+            check(all(bitwise.values()), f"vmapped {direction} != separate kernel calls: {bitwise}")
+            w, h, d = p[..., :10], p[..., 10:20], p[..., 20:]
+            ok, err_y, err_ld = compare(torch, rqs, x, w, h, d, inverse)
+            check(ok, f"vmapped {direction}: kernel != plain (y {err_y}, ld {err_ld})")
+            want = spline_grads(torch, rqs.rational_quadratic_spline_plain, x, w, h, d, gy, gl,
+                                inverse, 3.0, consts)
+            got = (gx_v, gp_v[..., :10], gp_v[..., 10:20], gp_v[..., 20:])
+            far = ~near_knot(torch, rqs, x, w, h, inverse, 3.0, consts, torch.float32)
+            grad_ok = all(bool(torch.isfinite(a).all()) for a in got)
+            for a, b in zip(got, want):
+                keep = far if a.dim() == far.dim() else far[..., None].expand_as(a)
+                grad_ok = grad_ok and bool(torch.allclose(a[keep], b[keep], atol=GRAD_ATOL,
+                                                          rtol=GRAD_RTOL))
+            check(grad_ok, f"vmapped {direction} gradients != plain")
+            out[direction] = {"bitwise_equal_to_separate_calls": bitwise,
+                              "vs_plain": {"max_abs_err_y": err_y, "max_abs_err_ld": err_ld,
+                                           "grad_max_abs_err": _grad_errors(torch, got, want, far),
+                                           "grad_near_knot": int((~far).sum())},
+                              "launches_per_vmapped_call": c1[spline_at] - c0[spline_at],
+                              "launches_per_vmapped_grad_call": {"spline": c2[spline_at] - c1[spline_at],
+                                                                 "backward": c2[2] - c1[2]}}
+    check(all(load == "one_span" for _, n, load in loads if n == K * rows * dims),
+          f"merged launches took the strided tile load: {loads}")
+
+    n = K * rows * dims
+    merged = torch.func.vmap(spline(False))
+    with torch.no_grad():
+        merged_call = lambda: merged(x, p)
+        separate = lambda: [spline(False)(x[k], p[k]) for k in range(K)]
+        timing = {
+            "n_merged": n, "n_each": rows * dims, "members": K,
+            "bound_ms": spline_bound_ms(n, 10)[0],
+            "merged_device_ms": device_ms(torch, merged_call, match="rqs"),
+            "separate_device_ms": device_ms(torch, separate),
+            "merged_call_ms": time_ms(torch, merged_call),
+            "separate_calls_ms": time_ms(torch, separate),
+        }
+    vgrad = torch.func.vmap(grad_of(False))
+    timing.update(
+        backward_bound_ms=backward_bound_ms(n, 10)[0],
+        merged_grad_call_ms=time_ms(torch, lambda: vgrad(x, p, gy, gl)),
+        separate_grad_calls_ms=time_ms(torch, lambda: [grad_of(False)(x[k], p[k], gy[k], gl[k])
+                                                        for k in range(K)]))
+    rqs.forward_launches, rqs.inverse_launches, rqs.backward_launches = saved
+    emit("ensemble_merge", shape=[K, rows, dims, 29], tile_load=sorted(set(l for _, _, l in loads)),
+         tolerance={"values_and_gradients_vs_separate_calls": "bitwise",
+                    "vs_plain": "as kernel_vs_plain"}, **out, timing=timing)
+    return timing
+
+
+def ensemble_step_check(torch, builder, theta, x, device, gen, lr=5e-4):
+    """One vmapped ensemble step (``ensemble_step``, what ``train_ensemble``
+    runs) from a common start against each member's single-model step on
+    the same batch: loss, clipped gradients and parameters after Adam, at
+    the tolerances STEP_*. The clip is set between the smallest and the
+    largest member's gradient norm, so that it scales some members and
+    leaves others."""
+    from sbi_tpu_torch.inference.trainers.base import (
+        clip_by_global_norm_,
+        ensemble_grad_and_loss,
+        ensemble_step,
+    )
+    from sbi_tpu_torch.neural_nets.estimators.base import stack_nets
+
+    K = ENS_MEMBERS
+    ests = [builder(theta, x) for _ in range(K)]
+    for est in ests[1:]:
+        est.input_transform, est.condition_transform = ests[0].input_transform, ests[0].condition_transform
+    params = stack_nets([e.net for e in ests])
+    template = ests[0]
+    grad_and_loss = ensemble_grad_and_loss(
+        template.net, lambda th, xx, m: -template.log_prob(th[None], xx)[0])
+    idx = torch.randint(theta.shape[0], (K, ENS_BATCH), generator=gen, device=device)
+    batch = (theta[idx], x[idx], torch.ones(K, ENS_BATCH, device=device))
+    with torch.no_grad():
+        grads, _ = grad_and_loss(params, *batch)
+        norms = torch.linalg.vector_norm(torch.cat([g.reshape(K, -1) for g in grads.values()], 1), dim=1)
+    norms = norms.tolist()
+    clip = math.sqrt(min(norms) * max(norms))
+    check(min(norms) < clip < max(norms), f"member gradient norms {norms}")
+    adam = dict(lr=lr, betas=(0.9, 0.999), eps=1e-8, foreach=True)
+    opt = torch.optim.Adam(list(params.values()), **adam)
+    losses = ensemble_step(grad_and_loss, params, opt, batch, clip).tolist()
+    worst = {"loss_rel": 0.0, "grad_rel": 0.0, "param_abs": 0.0, "param_tight_share": 1.0}
+    for k, est in enumerate(ests):
+        named = dict(est.net.named_parameters())
+        loss = -est.log_prob(batch[0][k][None], batch[1][k])[0].mean()
+        g = torch.autograd.grad(loss, list(named.values()))
+        clip_by_global_norm_(list(g), clip)
+        for p_, g_ in zip(named.values(), g):
+            p_.grad = g_
+        torch.optim.Adam(list(named.values()), **adam).step()
+        lk = float(loss.detach())
+        worst["loss_rel"] = max(worst["loss_rel"], abs(losses[k] - lk) / abs(lk))
+        tight = total = 0
+        for (name, p_), g_ in zip(named.items(), g):
+            scale = float(g_.abs().max()) or 1.0
+            worst["grad_rel"] = max(worst["grad_rel"], float((params[name].grad[k] - g_).abs().max()) / scale)
+            diff = (params[name][k] - p_.detach()).abs()
+            worst["param_abs"] = max(worst["param_abs"], float(diff.max()))
+            tight += int((diff <= STEP_PARAM_TIGHT).sum())
+            total += diff.numel()
+        worst["param_tight_share"] = min(worst["param_tight_share"], tight / total)
+    check(worst["loss_rel"] <= STEP_LOSS_RTOL and worst["grad_rel"] <= STEP_GRAD_RTOL
+          and worst["param_abs"] <= 2 * lr and worst["param_tight_share"] >= STEP_TIGHT_SHARE,
+          f"vmapped step != single-model steps: {worst}")
+    return {"member_grad_norms": norms, "clip": clip,
+            "members_clipped": sum(n >= clip for n in norms), "max_err": worst,
+            "tolerance": {"loss_rtol": STEP_LOSS_RTOL, "grad_rtol_of_max": STEP_GRAD_RTOL,
+                          "param_atol": 2 * lr, "param_tight": STEP_PARAM_TIGHT,
+                          "param_tight_share": STEP_TIGHT_SHARE}}
+
+
+def npe_ens8(torch, rqs, device, seed, epochs=ENS_EPOCHS):
+    """npe-nsf-ens8 at full width: the deterministic step check, then
+    ``NPE(...).train_ensemble`` (at most ``epochs`` epochs), a single model
+    at the same width for one epoch and a warm-up, profiled vmapped steps,
+    the mixture ``EnsemblePosterior`` scored by C2ST against
+    ``gaussian_linear.npz``, one member's C2ST, and ``sample_batched``,
+    ``log_prob(individually=True)`` and ``weight_by_evidence`` once each."""
+    import warnings
+
+    from sbi_tpu_torch.inference import NPE
+    from sbi_tpu_torch.inference.trainers.base import ensemble_grad_and_loss, ensemble_step
+    from sbi_tpu_torch.neural_nets import posterior_nn
+    from sbi_tpu_torch.neural_nets.estimators.base import functional
+    from sbi_tpu_torch.simulators import get_task
+    from sbi_tpu_torch.utils import c2st_torch
+
+    gen = torch.Generator(device=device).manual_seed(seed + 110)
+    task = get_task("gaussian_linear", device=device)
+    theta = task.prior.sample((ENS_SIMS,), generator=gen)
+    x = task.simulator(theta, generator=gen)
+    builder = posterior_nn("nsf", hidden_features=ENS_HIDDEN, num_transforms=5,
+                           interleave_affine=True, device=device)
+    step_check = ensemble_step_check(torch, builder, theta, x, device, gen)
+
+    inference = NPE(prior=task.prior, density_estimator=builder)
+    inference.append_simulations(theta, x)
+    f0, b0 = rqs.forward_launches, rqs.backward_launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "Maximum number of epochs reached"
+        members, t_train = sync_time(torch, lambda: inference.train_ensemble(
+            num_members=ENS_MEMBERS, training_batch_size=ENS_BATCH, max_num_epochs=epochs,
+            epoch_chunk=25, stop_after_epochs=100, generator=gen))
+    epochs_run = inference.summary["epochs_trained"][-1]
+    n_train = ENS_SIMS - int(0.1 * ENS_SIMS)
+    per_epoch = n_train // ENS_BATCH
+    steps = epochs_run * per_epoch
+    n_spline = spline_layers(members[0].net)
+    check(rqs.forward_launches - f0 == n_spline * (steps + epochs_run),
+          f"{rqs.forward_launches - f0} forward launches for {steps} steps, {epochs_run} epochs")
+    check(rqs.backward_launches - b0 == n_spline * steps,
+          f"{rqs.backward_launches - b0} backward launches for {steps} steps")
+    durations = inference.summary["epoch_durations_sec"][-epochs_run:]
+    timed = sorted(durations[1:]) or durations
+    epoch_s = timed[len(timed) // 2]
+    losses, val = inference.summary["training_loss"], inference.summary["validation_loss"]
+    check(all(math.isfinite(v) for v in losses + val) and losses[-1] < losses[0],
+          f"ensemble losses {losses}")
+
+    single = NPE(prior=task.prior, density_estimator=builder)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        single.append_simulations(theta, x).train(max_num_epochs=2, generator=gen)
+    single_epoch_s = single.summary["epoch_durations_sec"][-1]
+
+    # Vmapped steps as train_ensemble runs them, from its stacked state:
+    # the spline launches and their sizes, and a profiled window.
+    params = {k: v.clone() for k, v in inference._ensemble_stacked_state.items()}
+    opt = torch.optim.Adam(list(params.values()), lr=5e-4, foreach=True)
+    template = members[0]  # run under each member's parameters, as train_ensemble does
+    grad_and_loss = ensemble_grad_and_loss(template.net, inference._ensemble_loss_fn(template))
+    val_fn = inference._ensemble_val_loss_fn(template)
+    member_val = torch.func.vmap(functional(template.net, lambda *b: val_fn(*b).mean()))
+    batches = [torch.randint(ENS_SIMS, (ENS_MEMBERS, ENS_BATCH), generator=gen, device=device)
+               for _ in range(ENS_PROFILED_STEPS)]
+    masks = torch.ones(ENS_MEMBERS, ENS_BATCH, device=device)
+
+    def run_steps():
+        for idx in batches:
+            ensemble_step(grad_and_loss, params, opt, (theta[idx], x[idx], masks), 5.0)
+
+    with recorded_launches(rqs) as step_launches:
+        idx = batches[0]
+        ensemble_step(grad_and_loss, params, opt, (theta[idx], x[idx], masks), 5.0)
+    vidx = inference._val_indices.expand(ENS_MEMBERS, -1)
+    with recorded_launches(rqs) as val_launches, torch.no_grad():
+        member_val(params, theta[vidx], x[vidx], masks[:, :1].expand_as(vidx))
+    n_step = ENS_MEMBERS * ENS_BATCH * 5
+    n_val = ENS_MEMBERS * vidx.shape[1] * 5
+    check(step_launches == [("forward", n_step, "one_span")] * n_spline
+          + [("backward", n_step, "one_span")] * n_spline, f"step launches {step_launches}")
+    check(val_launches == [("forward", n_val, "one_span")] * n_spline, f"validation launches {val_launches}")
+    _, t_steps = sync_time(torch, run_steps)
+    wall, busy, fwd_s, bwd_s, n_ops = profile_shares(torch, run_steps)
+
+    post = inference.build_ensemble_posterior()
+    check(post.potential_fn.vmapped, "the ensemble posterior evaluates members one by one")
+    observations, references = reference_posteriors("gaussian_linear")
+    scores, sample_s = [], []
+    for x_o, ref in zip(observations, references):
+        x_o = torch.as_tensor(x_o, device=device)
+        samples, t = sync_time(torch, lambda: post.sample((ENS_DRAWS,), x=x_o, generator=gen))
+        check(tuple(samples.shape) == (ENS_DRAWS, 10) and bool(torch.isfinite(samples).all()),
+              "ensemble samples")
+        scores.append(float(c2st_torch(samples, torch.as_tensor(ref[:ENS_DRAWS], device=device),
+                                       generator=gen)))
+        sample_s.append(t)
+    member0 = inference.build_posterior(density_estimator=members[0])
+    x0 = torch.as_tensor(observations[0], device=device)
+    member_c2st = float(c2st_torch(member0.sample((ENS_DRAWS,), x=x0, generator=gen),
+                                   torch.as_tensor(references[0][:ENS_DRAWS], device=device),
+                                   generator=gen))
+
+    xs = torch.cat([torch.as_tensor(observations, device=device),
+                    task.simulator(task.prior.sample((5,), generator=gen), generator=gen)])
+    batched, t_batched = sync_time(torch, lambda: post.sample_batched((1_000,), x=xs, generator=gen))
+    check(tuple(batched.shape) == (1_000, 8, 10) and bool(torch.isfinite(batched).all()),
+          f"ensemble sample_batched {tuple(batched.shape)}")
+    th = task.prior.sample((1_000,), generator=gen)
+    with torch.no_grad():
+        lps = post.log_prob(th, x=x0, individually=True)
+        lp = post.log_prob(th, x=x0)
+    check(tuple(lps.shape) == (ENS_MEMBERS, 1_000) and bool(torch.isfinite(lps).all()),
+          "log_prob(individually=True)")
+    mix = torch.logsumexp(lps + torch.log(post.weights)[:, None], 0)
+    check(bool(torch.allclose(lp, mix, atol=1e-5)), "mixture log_prob")
+    logz, t_evidence = sync_time(torch, lambda: post.weight_by_evidence(
+        x=x0, num_samples=100_000, generator=gen))
+    check(bool(torch.isfinite(logz).all()) and bool(torch.allclose(
+        post.weights, torch.softmax(logz, 0), atol=1e-6)), f"weight_by_evidence {logz.tolist()}")
+
+    mean = sum(scores) / len(scores)
+    emit("npe_ens8", members=ENS_MEMBERS, simulations=ENS_SIMS, hidden=ENS_HIDDEN, batch=ENS_BATCH,
+         params_per_member=sum(p.numel() for p in members[0].net.parameters()),
+         spline_layers=n_spline, steps_per_epoch=per_epoch, epochs=epochs_run, max_epochs=epochs,
+         train_s=t_train, epoch_s_median=epoch_s, ensemble_steps_per_s=per_epoch / epoch_s,
+         member_steps_per_s=ENS_MEMBERS * per_epoch / epoch_s,
+         single_model_epoch_s=single_epoch_s, single_model_steps_per_s=per_epoch / single_epoch_s,
+         training_loss=losses, validation_loss=val,
+         best_validation_loss=inference.summary["best_validation_loss"][-1],
+         step_check=step_check,
+         step_launches=[[k, n] for k, n, _ in step_launches],
+         validation_launches=[[k, n] for k, n, _ in val_launches],
+         tile_load=sorted(set(l for _, _, l in step_launches + val_launches)),
+         profiled_steps={"steps": ENS_PROFILED_STEPS, "steps_per_s": ENS_PROFILED_STEPS / t_steps,
+                         "wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+                         "device_ops_per_step": n_ops / ENS_PROFILED_STEPS,
+                         "spline_forward_s": fwd_s, "spline_backward_s": bwd_s},
+         c2st=scores, c2st_mean=mean, c2st_bar={"mean": ENS_C2ST_MEAN_MAX, "each": ENS_C2ST_EACH_MAX},
+         member0_c2st_obs0=member_c2st, sample_s=sample_s, sample_batched_s=t_batched,
+         evidence_s=t_evidence, log_evidence=logz.tolist(), weights=post.weights.tolist(),
+         sbi_tpu_reference={"c2st_mean": 0.5111, "source": "bm_results_round5.csv",
+                            "classifier": "sklearn"})
+    check(mean <= ENS_C2ST_MEAN_MAX and max(scores) <= ENS_C2ST_EACH_MAX, f"ensemble C2ST {scores}")
+
+
+def nle_poe_slcp(torch, rqs, fsm, device, seed, single):
+    """SLCP NLE-NSF, POE_MEMBERS members at full width trained for a few
+    epochs with ``train_ensemble``, then the product of experts sampled as
+    ``nle_slcp`` samples one model (1,000 chains, warmup 10, 5 draws a
+    chain): a strict warm run (no host sync but the loop condition's), a
+    timed run and a profiled one. Every potential evaluation is one flow
+    pass for all members, one forward launch per coupling. ``single``: the
+    single-model figures of ``nle_slcp`` in this run."""
+    import warnings
+
+    from sbi_tpu_torch.inference import NLE
+    from sbi_tpu_torch.simulators import get_task, slcp_simulator
+
+    gen = torch.Generator(device=device).manual_seed(seed + 120)
+    task = get_task("slcp", device=device)
+    theta = task.prior.sample((POE_SIMS,), generator=gen)
+    x = slcp_simulator(theta, generator=gen)
+    inference = NLE(prior=task.prior, density_estimator="nsf")
+    inference.append_simulations(theta, x)
+    f0, b0 = rqs.forward_launches, rqs.backward_launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        members, t_train = sync_time(torch, lambda: inference.train_ensemble(
+            num_members=POE_MEMBERS, max_num_epochs=POE_EPOCHS, generator=gen))
+    epochs_run = inference.summary["epochs_trained"][-1]
+    steps = epochs_run * ((POE_SIMS - POE_SIMS // 10) // 200)
+    n_spline = spline_layers(members[0].net)
+    check(rqs.forward_launches - f0 == n_spline * (steps + epochs_run)
+          and rqs.backward_launches - b0 == n_spline * steps,
+          f"PoE training launches {rqs.forward_launches - f0}, {rqs.backward_launches - b0}")
+    losses = inference.summary["training_loss"]
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], f"PoE losses {losses}")
+
+    posterior = inference.build_ensemble_posterior("product")
+    check(posterior.potential_fn.vmapped, "the PoE evaluates members one by one")
+    net = posterior.posteriors[0].potential_fn.likelihood_estimator.net
+    passes = count_calls(net, "log_prob")
+    x_o = slcp_simulator(task.prior.sample((1,), generator=gen), generator=gen)
+
+    def sample():
+        return posterior.sample((NLE_CHAINS * NLE_SAMPLES,), x=x_o, generator=gen,
+                                num_chains=NLE_CHAINS, warmup_steps=NLE_WARMUP)
+
+    f1 = rqs.forward_launches
+    with FsmCounts(torch, fsm, strict=device.type == "cuda"):
+        sample()
+    with FsmCounts(torch, fsm) as counts:
+        samples, seconds = sync_time(torch, sample)
+    t0 = time.perf_counter()
+    wall, busy, fwd_s, _, n_ops = profile_shares(torch, sample)
+    profiler_s = time.perf_counter() - t0 - wall
+    launches = rqs.forward_launches - f1
+    check(launches == n_spline * passes[0],
+          f"{launches} forward launches for {passes[0]} potential evaluations")
+    check(tuple(samples.shape) == (NLE_CHAINS * NLE_SAMPLES, 5), f"PoE samples {tuple(samples.shape)}")
+    check(bool(torch.isfinite(samples).all()), "non-finite PoE sample")
+    check(bool(task.prior.within_support(samples).all()), "PoE sample outside the prior")
+    runs = 3
+    emit("nle_poe_slcp", members=POE_MEMBERS, simulations=POE_SIMS, spline_layers=n_spline,
+         epochs=epochs_run, train_s=t_train, steps_per_s=steps / t_train, training_loss=losses,
+         chains=NLE_CHAINS, warmup=NLE_WARMUP, samples_per_chain=NLE_SAMPLES, seconds=seconds,
+         poe_slice_samples_per_sec=NLE_CHAINS * NLE_SAMPLES / seconds, **counts.fields(seconds),
+         host_ms_per_iteration=seconds / max(counts.iterations, 1) * 1e3,
+         strict_no_sync=device.type == "cuda",
+         potential_evaluations_per_run=passes[0] / runs, forward_launches_per_run=launches / runs,
+         forward_launch_n=POE_MEMBERS * NLE_CHAINS * 4,
+         profiled_run={"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+                       "device_ops": n_ops, "spline_forward_s": fwd_s,
+                       "profiler_overhead_s": profiler_s},
+         single_member_nle_slcp=single)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1251,13 +1716,16 @@ def main(argv=None) -> int:
          time_ms="wall time per call back to back (CUDA events), host work included",
          warm="the working set (35 MB at n = 300,000) stays in the 50 MB L2, as after the conditioner writes it",
          cold=f"{FLUSH_BYTES} bytes written before each call, outside the timed span")
+    # The spline's vmap rule at the ensemble step's shape: launch counts,
+    # bit-for-bit checks and times (before the main paths, as above).
+    merge = ensemble_merge(torch, rqs, device, args.seed)
 
-    # 5-16. The main paths, serving, training, then NLE and MCMC: each
+    # 5-16. The main paths, serving, training, NLE and MCMC, ensembles: each
     # path's counts are zeroed just before it and read just after, and each
     # of its kernels must have launched.
     from sbi_tpu_torch.samplers.mcmc import slice_fsm
 
-    trained = {}  # the two_moons NPE trainer, sampled by MCMC on the nle_mcmc path
+    trained = {}  # the two_moons NPE trainer and nle_slcp's figures, used by later paths
     paths = (
         ("serving", ("forward", "inverse"), lambda: (
             slcp_path(torch, rqs, device, args.seed),
@@ -1270,9 +1738,12 @@ def main(argv=None) -> int:
         ("nle_mcmc", ("forward", "backward"), lambda: (
             slice_gaussian(torch, slice_fsm, device, args.seed),
             slcp_exact_slice(torch, slice_fsm, device, args.seed),
-            nle_slcp(torch, rqs, slice_fsm, device, args.seed),
+            trained.setdefault("nle_slcp", nle_slcp(torch, rqs, slice_fsm, device, args.seed)),
             mcmc_batched(torch, rqs, device, args.seed,
                          nle_two_moons(torch, rqs, device, args.seed), trained["npe"]))),
+        ("ensembles", ("forward", "inverse", "backward"), lambda: (
+            npe_ens8(torch, rqs, device, args.seed),
+            nle_poe_slcp(torch, rqs, slice_fsm, device, args.seed, trained["nle_slcp"]))),
     )
     by_path = {}
     for path, kernels_of_path, drive in paths:
@@ -1299,13 +1770,18 @@ def main(argv=None) -> int:
             "shape": f"n={t['n']}, K={t['K']}",
             "ms_at_mcmc_n": t["sizes"][str(NLE_CHAINS * 4)]["warm"]["device_ms"],
             "bound_ms_at_mcmc_n": t["sizes"][str(NLE_CHAINS * 4)]["bound_ms"],
+            "vmap_rule": VMAP_RULE,
         })
+    kernels[0].update(ms_merged_at_ensemble_n=merge["merged_device_ms"],
+                      ms_separate_launches_at_ensemble_n=merge["separate_device_ms"],
+                      bound_ms_at_ensemble_n=merge["bound_ms"], ensemble_n=merge["n_merged"])
     kernels.append({
         "name": "rqs_spline_backward", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES_BACKWARD, "launches": launches["backward"],
         "max_abs_err": worst_backward, "ms": backward["ms"], "plain_ms": backward["plain_ms"],
         "bound_ms": backward["bound_ms"], "bound_by": backward["bound_by"], "library_ms": None,
         "shape": f"n={backward['n']}, K={backward['K']}, forward direction",
+        "vmap_rule": VMAP_RULE,
     })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,14 +4,15 @@ posteriors.
 Ported so far: ``NeuralInference``, ``PosteriorEstimatorTrainer``, NPE-C
 (``NPE``, ``NPE_C``, ``SNPE``, ``SNPE_C``, ``APT``),
 ``LikelihoodEstimatorTrainer`` and NLE-A (``NLE``, ``NLE_A``, ``SNLE``,
-``SNLE_A``, ``SNL``), ``infer``, ``simulate_for_sbi``, ``DirectPosterior``,
-``MCMCPosterior`` (vectorized slice sampling) and the posterior and
-likelihood potentials. The other names of ``sbi_tpu.inference`` come with
+``SNLE_A``, ``SNL``), ensembles (``train_ensemble``,
+``build_ensemble_posterior``), ``infer``, ``simulate_for_sbi``,
+``DirectPosterior``, ``MCMCPosterior`` (vectorized slice sampling),
+``EnsemblePosterior`` and the posterior and likelihood potentials. The other names of ``sbi_tpu.inference`` come with
 later slices and raise ``NotImplementedError`` when asked for.
 """
 
 from ..utils.simulation_utils import simulate_for_sbi
-from .posteriors import DirectPosterior, MCMCPosterior, NeuralPosterior
+from .posteriors import DirectPosterior, EnsemblePosterior, MCMCPosterior, NeuralPosterior
 from .potentials.likelihood_based_potential import (
     LikelihoodBasedPotential,
     likelihood_estimator_based_potential,
@@ -33,7 +34,7 @@ _LATER_SLICE_NAMES = frozenset((
     "CNRE", "BNRE", "NPE_A", "SNPE_A", "NPE_B", "SNPE_B", "MNPE", "NPE_PFN", "FMPE", "NPSE",
     "VectorFieldTrainer", "MarginalTrainer", "MCABC", "ABC", "SMCABC", "SMC",
     "RejectionPosterior", "ImportanceSamplingPosterior", "VIPosterior",
-    "VectorFieldPosterior", "EnsemblePosterior", "vector_field_estimator_based_potential",
+    "VectorFieldPosterior", "vector_field_estimator_based_potential",
     "mixed_likelihood_estimator_based_potential", "RatioBasedPotential",
     "ratio_estimator_based_potential",
 ))
@@ -53,7 +54,7 @@ def __getattr__(name):
 
 
 __all__ = [
-    "APT", "DirectPosterior", "LikelihoodBasedPotential", "LikelihoodEstimatorTrainer",
+    "APT", "DirectPosterior", "EnsemblePosterior", "LikelihoodBasedPotential", "LikelihoodEstimatorTrainer",
     "MCMCPosterior", "METHOD_REGISTRY", "NLE", "NLE_A", "NPE", "NPE_C", "NeuralInference",
     "NeuralPosterior", "PosteriorEstimatorTrainer", "SNL", "SNLE", "SNLE_A", "SNPE", "SNPE_C",
     "check_if_proposal_has_default_x", "infer", "likelihood_estimator_based_potential",

@@ -20,8 +20,16 @@ The port keeps what matters of that on the card:
   when the validation loss improves and restored at the end.
 
 ``epoch_chunk`` is accepted for parity: the port restores the best
-parameters of every epoch exactly. ``train_ensemble``, ``mesh=`` and
-``ema_params_decay`` come with later slices and raise.
+parameters of every epoch exactly.
+
+``train_ensemble`` trains K members as one ``torch.func.vmap`` over their
+stacked parameters (``torch.func.stack_module_state``), through
+``torch.func.functional_call``: a step is one vmapped
+``grad_and_value`` of the members' mean losses, a per-member clip and one
+foreach Adam over the stacked leaves, so it costs about the host ops of
+one model, and each spline launch covers every member (the spline's
+``vmap`` rule). ``mesh=`` and ``ema_params_decay`` come with later slices
+and raise.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
+from ...neural_nets.estimators.base import functional, stack_nets, stackable
 from ...utils.sbiutils import handle_invalid_x, next_generator, resolve_device, warn_on_invalid_x
 from ...utils.tracking import InMemoryTracker, Tracker
 from ._contracts import TrainConfig
@@ -101,6 +110,47 @@ def clip_by_global_norm_(grads, max_norm: float) -> None:
     norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
+
+
+@torch.no_grad()
+def clip_by_global_norm_per_member_(grads, max_norm: float) -> None:
+    """``clip_by_global_norm_`` for each member of stacked gradients (a
+    leading member axis on every tensor): member k's gradients are scaled
+    by max_norm / g_k when its own global norm g_k >= max_norm, as
+    ``optax.clip_by_global_norm`` inside the JAX package's vmapped step."""
+    K = grads[0].shape[0]
+    norm = torch.linalg.vector_norm(torch.cat([g.reshape(K, -1) for g in grads], dim=1), dim=1)
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, [scale.view((K,) + (1,) * (g.dim() - 1)) for g in grads])
+
+
+def ensemble_grad_and_loss(net: torch.nn.Module, loss_fn: Callable) -> Callable:
+    """``f(params, theta_b, x_b, masks_b) -> (grads, losses)`` for stacked
+    parameters and batches (a leading member axis on each): the gradients
+    and values of every member's mean loss, in one ``torch.func.vmap``.
+    ``loss_fn(theta_b, x_b, masks_b) -> (B,)`` calls ``net``."""
+    mean_loss = functional(net, lambda *batch: loss_fn(*batch).mean())
+    return torch.func.vmap(torch.func.grad_and_value(mean_loss))
+
+
+def ensemble_step(grad_and_loss: Callable, params: Dict[str, torch.Tensor], optimizer,
+                  batch, clip_max_norm: Optional[float], lr: Optional[float] = None) -> torch.Tensor:
+    """One optimizer step of every member on ``batch`` (theta, x, masks,
+    each (K, B, ...)): vmapped gradients, the per-member clip, one foreach
+    Adam over the stacked leaves (Adam is elementwise, so it is K Adams).
+    Returns the (K,) losses, without a host sync."""
+    with torch.no_grad():  # torch.func.grad computes the gradients itself
+        grads, loss = grad_and_loss(params, *batch)
+        grads = [grads[k] for k in params]
+        if clip_max_norm is not None:
+            clip_by_global_norm_per_member_(grads, clip_max_norm)
+    for p, g in zip(params.values(), grads):
+        p.grad = g
+    if lr is not None:
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+    optimizer.step()
+    return loss
 
 
 class NeuralInference(ABC):
@@ -350,11 +400,197 @@ class NeuralInference(ABC):
         return self._epochs_since_last_improvement > stop_after_epochs - 1
 
     # ------------------------------------------------------------ ensembles
-    def train_ensemble(self, *args, **kwargs):
-        raise NotImplementedError(f"train_ensemble {_LATER_SLICE}.")
+    def _ensemble_build_net(self, theta, x):
+        """Build one ensemble member on the trainer's device."""
+        est = self._build_neural_net(theta, x)
+        if est.device != self._device:
+            raise ValueError(f"The density estimator lies on {est.device}, the trainer on "
+                             f"{self._device}.")
+        return est
 
-    def build_ensemble_posterior(self, *args, **kwargs):
-        raise NotImplementedError(f"build_ensemble_posterior {_LATER_SLICE}.")
+    def _ensemble_loss_fn(self, est) -> Callable:
+        """``fn(theta_b, x_b, masks_b) -> (B,)`` through the estimator
+        ``est``, which ``train_ensemble`` evaluates under each member's
+        parameters. No random numbers: the vmapped step draws none."""
+        raise NotImplementedError(f"{type(self).__name__}.train_ensemble {_LATER_SLICE}.")
+
+    def _ensemble_val_loss_fn(self, est) -> Callable:
+        """The loss of the per-member best-validation snapshots."""
+        return self._ensemble_loss_fn(est)
+
+    def train_ensemble(
+        self,
+        num_members: int,
+        training_batch_size: int = 200,
+        learning_rate: float = 5e-4,
+        validation_fraction: float = 0.1,
+        stop_after_epochs: int = 20,
+        max_num_epochs: int = 2**31 - 1,
+        clip_max_norm: Optional[float] = 5.0,
+        epoch_chunk: int = 10,
+        bootstrap: bool = False,
+        start_idx: int = 0,
+        member_train_indices=None,
+        lr_schedule: Optional[str] = None,
+        lr_decay_epochs: Optional[int] = None,
+        lr_warmup_frac: float = 0.02,
+        lr_final_factor: float = 0.01,
+        mesh=None,
+        ema_params_decay: Optional[float] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> list:
+        """Train ``num_members`` independently initialised estimators as one
+        vmapped program over their stacked parameters.
+
+        - Each member has its own initialisation (K builds); all share the
+          architecture, the z-scoring (one transform, made from the data)
+          and the train/validation split. With ``bootstrap=True`` each
+          member trains on its own resample, with replacement, of the
+          training rows; ``member_train_indices`` gives each member its own
+          rows, its validation rows carved from the end of them, all cut to
+          a common length.
+        - Every epoch draws a permutation per member. A step is one vmapped
+          gradient of all members' mean losses, each member's gradients
+          clipped by its own global norm, and one Adam over the stacked
+          parameters. One host sync an epoch.
+        - Best-validation snapshots are kept per member on the device
+          (strict ``<``). Patience runs on the host and needs an
+          improvement of 1e-4; training stops when every member is out of
+          patience, or at ``max_num_epochs`` with a warning.
+        - ``epoch_chunk`` is accepted for parity: the JAX package stops only
+          at the end of a chunk of epochs, the port at the first epoch that
+          qualifies. Best parameters are per epoch in both, so the members
+          returned are the same.
+
+        Returns the members (best-validation parameters). They are also in
+        ``self._ensemble_estimators``, and the stacked best parameters in
+        ``self._ensemble_stacked_state``.
+        """
+        if mesh is not None:
+            raise NotImplementedError(f"train_ensemble over a device mesh (mesh=) {_LATER_SLICE}.")
+        if ema_params_decay is not None:
+            raise NotImplementedError(f"ema_params_decay {_LATER_SLICE}.")
+        gen = next_generator(generator, self._device)
+        theta, x, masks, train_idx, val_idx = self.get_dataloaders(
+            start_idx, training_batch_size, validation_fraction, False, generator=gen)
+        K = num_members
+        ests = [self._ensemble_build_net(theta, x) for _ in range(K)]
+        for est in ests[1:]:  # one z-scoring, made from the same data
+            est.input_transform = ests[0].input_transform
+            est.condition_transform = ests[0].condition_transform
+        if self._neural_net is None:
+            self._neural_net = ests[0]
+        nets = [est.net for est in ests]
+        if not stackable(nets):
+            raise ValueError("the builder gave ensemble members of different architectures")
+        params = stack_nets(nets)
+
+        dev = self._device
+        if member_train_indices is not None:
+            rows = [torch.as_tensor(r, dtype=torch.long, device=dev) for r in member_train_indices]
+            if len(rows) != K:
+                raise ValueError(f"member_train_indices has {len(rows)} entries for {K} members")
+            shortest = min(len(r) for r in rows)
+            n_val = max(1, int(math.floor(validation_fraction * shortest)))
+            m = shortest - n_val
+            if m <= 0:
+                raise ValueError("member blocks too small for the validation split")
+            member_train_idx = torch.stack([r[:m] for r in rows])
+            member_val_idx = torch.stack([r[len(r) - n_val:] for r in rows])
+        elif bootstrap:
+            draw = torch.randint(len(train_idx), (K, len(train_idx)), generator=gen, device=dev)
+            member_train_idx = train_idx[draw]
+            member_val_idx = val_idx.expand(K, -1)
+        else:
+            member_train_idx = train_idx.expand(K, -1)
+            member_val_idx = val_idx.expand(K, -1)
+        m = member_train_idx.shape[1]
+        batch_size = min(training_batch_size, m)
+        n_batches = max(1, m // batch_size)
+
+        cfg = TrainConfig(learning_rate=learning_rate, clip_max_norm=clip_max_norm,
+                          max_num_epochs=max_num_epochs, lr_schedule=lr_schedule,
+                          lr_decay_epochs=lr_decay_epochs, lr_warmup_frac=lr_warmup_frac,
+                          lr_final_factor=lr_final_factor)
+        optimizer = self._make_optimizer(cfg, list(params.values()))
+        schedule = self._make_schedule(cfg, n_batches)
+        # Member 0 run under each member's parameters: the members share its
+        # architecture and z-scoring.
+        template = ests[0]
+        grad_and_loss = ensemble_grad_and_loss(template.net, self._ensemble_loss_fn(template))
+        val_fn = self._ensemble_val_loss_fn(template)
+        member_val = torch.func.vmap(functional(template.net, lambda *b: val_fn(*b).mean()))
+
+        best_val = torch.full((K,), math.inf, device=dev)
+        best_params = {k: v.clone() for k, v in params.items()}
+        host_best = [math.inf] * K
+        since_impr = [0] * K
+        steps = epoch = 0
+        while epoch < max_num_epochs:
+            t0 = time.time()
+            perm = torch.rand(K, m, generator=gen, device=dev).argsort(dim=1)
+            batches = member_train_idx.gather(1, perm[:, : n_batches * batch_size])
+            batches = batches.reshape(K, n_batches, batch_size)
+            loss_sum = torch.zeros(K, device=dev)
+            for b in range(n_batches):
+                idx = batches[:, b]
+                lr = schedule(steps) if schedule is not None else None
+                loss_sum = loss_sum + ensemble_step(
+                    grad_and_loss, params, optimizer, (theta[idx], x[idx], masks[idx]),
+                    clip_max_norm, lr)
+                steps += 1
+            with torch.no_grad():
+                val = member_val(params, theta[member_val_idx], x[member_val_idx],
+                                 masks[member_val_idx])
+                improved = val < best_val
+                best_val = torch.where(improved, val, best_val)
+                for k, v in params.items():
+                    keep = improved.view((K,) + (1,) * (v.dim() - 1))
+                    best_params[k] = torch.where(keep, v, best_params[k])
+            # The epoch's one host sync.
+            train_losses, val_losses = torch.stack([loss_sum / n_batches, val]).tolist()
+            if not all(math.isfinite(v) for v in val_losses):
+                raise AssertionError(f"NaN/Inf in ensemble validation loss (epoch {epoch}).")
+            epoch += 1
+            for i, v in enumerate(val_losses):
+                # Patience needs a material improvement: with many members
+                # some member always gains a little, which would reset its
+                # counter forever. The snapshots above use strict `<`.
+                if v < host_best[i] - 1e-4:
+                    host_best[i], since_impr[i] = v, 0
+                else:
+                    since_impr[i] += 1
+            self._summary["training_loss"].append(sum(train_losses) / K)
+            self._summary["validation_loss"].append(sum(val_losses) / K)
+            self._summary["epoch_durations_sec"].append(time.time() - t0)
+            if min(since_impr) >= stop_after_epochs:
+                break
+        if epoch >= max_num_epochs:
+            warnings.warn("Maximum number of epochs reached, but not every ensemble member has "
+                          "converged.")
+
+        with torch.no_grad():
+            for i, net in enumerate(nets):
+                for name, p in net.named_parameters():
+                    p.copy_(best_params[name][i])
+        self._ensemble_estimators = ests
+        self._ensemble_stacked_state = best_params
+        self._summary["epochs_trained"].append(epoch)
+        self._summary["best_validation_loss"].append(sum(host_best) / K)
+        return ests
+
+    def build_ensemble_posterior(self, potential_combination: str = "mixture", **kwargs):
+        """An ``EnsemblePosterior`` over the members of ``train_ensemble``:
+        one ``build_posterior(density_estimator=member, **kwargs)`` each.
+        The members share one architecture and z-scoring, so the ensemble
+        evaluates their potentials in one vmapped call."""
+        from ..posteriors.ensemble_posterior import EnsemblePosterior
+
+        members = getattr(self, "_ensemble_estimators", None)
+        if not members:
+            raise RuntimeError("Run `train_ensemble(...)` first.")
+        posteriors = [self.build_posterior(density_estimator=e, **kwargs) for e in members]
+        return EnsemblePosterior(posteriors, potential_combination=potential_combination)
 
     # ------------------------------------------------------------- summary
     @staticmethod

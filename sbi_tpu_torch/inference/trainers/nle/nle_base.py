@@ -123,6 +123,14 @@ class LikelihoodEstimatorTrainer(NeuralInference):
 
         return loss_fn
 
+    def _ensemble_loss_fn(self, est) -> Callable:
+        """-log p(x | theta) for ``train_ensemble``."""
+
+        def loss_fn(theta_b, x_b, masks_b):
+            return -est.log_prob(x_b[None], theta_b)[0]
+
+        return loss_fn
+
     def build_posterior(
         self,
         density_estimator=None,

@@ -162,6 +162,16 @@ class PosteriorEstimatorTrainer(NeuralInference):
             return loss_fn
         return self._make_proposal_loss_fn(proposal, calibration_kernel)
 
+    def _ensemble_loss_fn(self, est) -> Callable:
+        """The first-round loss -log q(theta | x) for ``train_ensemble``
+        (proposal-corrected rounds train members one by one, with
+        ``train``)."""
+
+        def loss_fn(theta_b, x_b, masks_b):
+            return -est.log_prob(theta_b[None], x_b)[0]
+
+        return loss_fn
+
     @abstractmethod
     def _make_proposal_loss_fn(self, proposal, calibration_kernel) -> Callable:
         """Sequential-round (proposal-corrected) loss, subclass specific."""

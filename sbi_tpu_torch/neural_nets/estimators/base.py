@@ -11,13 +11,71 @@ convention.
 from __future__ import annotations
 
 import copy
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ...utils.transforms import IdentityTransform, Transform
 from .shape_handling import reshape_to_batch_event, reshape_to_sample_batch_event
+
+
+class _Bound(nn.Module):
+    """``fn`` as the forward of a module that holds ``net``, so that
+    ``torch.func.functional_call`` swaps ``net``'s parameters in while any
+    code that uses ``net`` runs."""
+
+    def __init__(self, net: nn.Module, fn: Callable):
+        super().__init__()
+        self.net = net
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def functional(net: nn.Module, fn: Callable) -> Callable:
+    """``fn(*args)``, which calls ``net``, as a pure function
+    ``f(params, *args)`` of ``net``'s parameters (a dict named as
+    ``net.named_parameters()`` names them; buffers stay ``net``'s own).
+
+    This is what the JAX package's ``log_prob_fn(params, ...)`` gives: a
+    function that ``torch.func.grad`` differentiates and ``torch.func.vmap``
+    maps over parameters stacked along a leading member axis
+    (``torch.func.stack_module_state``), as ensembles of one architecture
+    are trained and evaluated."""
+    bound = _Bound(net, fn)
+
+    def f(params: Dict[str, torch.Tensor], *args):
+        return torch.func.functional_call(bound, {f"net.{k}": v for k, v in params.items()}, args)
+
+    return f
+
+
+def stackable(nets) -> bool:
+    """Whether ``nets`` share one architecture: one class, the same
+    parameter names and shapes, and equal buffers (masks, index maps), so
+    that the first net run under each one's parameters is that net."""
+    nets = list(nets)
+    first, rest = nets[0], nets[1:]
+    shapes = [(k, v.shape) for k, v in first.named_parameters()]
+    buffers = dict(first.named_buffers())
+    for net in rest:
+        if type(net) is not type(first) or [(k, v.shape) for k, v in net.named_parameters()] != shapes:
+            return False
+        other = dict(net.named_buffers())
+        if other.keys() != buffers.keys() or not all(
+                b.shape == other[k].shape and torch.equal(b, other[k]) for k, b in buffers.items()):
+            return False
+    return True
+
+
+def stack_nets(nets) -> Dict[str, torch.Tensor]:
+    """The parameters of ``nets`` (``stackable``) stacked along a new
+    leading member axis, detached, named as ``net.named_parameters()``
+    names them."""
+    params, _ = torch.func.stack_module_state(list(nets))
+    return {k: v.detach() for k, v in params.items()}
 
 
 class ConditionalEstimator:

@@ -140,15 +140,20 @@ def build_nsf(
 ):
     """NSF: RQ-spline coupling + LU-linear with alternating masks for
     dim > 2; autoregressive RQ splines + reverse permutation for dim <= 2
-    (a coupling can only transform one coordinate per layer there)."""
-    if interleave_affine:
-        raise NotImplementedError(
-            "build_nsf(interleave_affine=True) is not ported yet; it comes with a later slice."
-        )
+    (a coupling can only transform one coordinate per layer there).
+
+    ``interleave_affine=True`` puts a MAF layer with log-scale bounds
+    ``affine_log_scale_bounds`` before each spline, in both branches: it
+    absorbs a conditional location and scale that spans many orders of
+    magnitude, and the spline models the O(1) residual shape."""
     dim = int(torch.as_tensor(batch_theta).shape[-1])
+    affine_cfg = ("maf", dict(hidden_features=hidden_features, num_blocks=num_blocks,
+                              log_scale_bounds=tuple(affine_log_scale_bounds)))
     configs = []
     if dim <= 2:
         for _ in range(num_transforms):
+            if interleave_affine:
+                configs.append(affine_cfg)
             configs.append(
                 (
                     "rqs_ar",
@@ -167,6 +172,8 @@ def build_nsf(
     else:
         for i in range(num_transforms):
             mask = _alternating_mask(dim, even=(i % 2 == 0))
+            if interleave_affine:
+                configs.append(affine_cfg)
             configs.append(
                 (
                     "rqs_coupling",

@@ -488,23 +488,89 @@ def _forward(x, w, h, d, inverse, tail_bound, mbw, mbh, mdr):
     return rational_quadratic_spline_plain(x, w, h, d, inverse, tail_bound, mbw, mbh, mdr)
 
 
+def tile_load(w: torch.Tensor, h: torch.Tensor, d: torch.Tensor) -> str:
+    """Which tile load the kernels take for these parameters, as the
+    launcher's ``make_params`` decides: ``"one_span"`` (16 B copies) where
+    w, h and d are slices of one row of pitch 3K-1, ``"strided"`` otherwise."""
+    K = w.shape[-1]
+    P = 3 * K - 1
+    w2, h2, d2 = w.reshape(-1, K), h.reshape(-1, K), d.reshape(-1, K - 1)
+    one_row = (h2.data_ptr() == w2.data_ptr() + 4 * K and d2.data_ptr() == w2.data_ptr() + 8 * K)
+    pitch = w2.shape[0] == 1 or w2.stride(0) == h2.stride(0) == d2.stride(0) == P
+    return "one_span" if one_row and pitch else "strided"
+
+
+def _merge(batch_size, in_dims, tensors):
+    """A vmap rule's merge: each batched tensor with its vmapped dimension
+    moved to the front (a view), each unbatched one broadcast to the batch
+    size by ``expand`` (a view), as ``_rule`` in ``rqs_pallas.py`` does."""
+    return [t.expand((batch_size,) + tuple(t.shape)) if dim is None else t.movedim(dim, 0)
+            for t, dim in zip(tensors, in_dims)]
+
+
 class _RQSpline(torch.autograd.Function):
+    """The spline as an autograd Function that ``torch.func`` can transform.
+
+    Its ``vmap`` rule is the counterpart of ``_rqs_flat_fn``
+    (``sbi_tpu/ops/rqs_pallas.py:180``), the TPU kernel's ``custom_vmap``:
+    the spline is elementwise over the leading axes, so a vmapped call
+    merges the batch axis into the element axis and launches the kernel
+    once, not once per batch element. Under nested ``vmap`` the rule runs
+    level by level, still one launch per call. Inside ``torch.func.grad``
+    the backward is ``_RQSplineBackward``, which has a rule of its own, so
+    ``vmap(grad(...))`` launches one backward kernel per spline call."""
+
     @staticmethod
-    def forward(ctx, x, w, h, d, inverse, tail_bound, mbw, mbh, mdr):
-        ctx.save_for_backward(x, w, h, d)
-        ctx.consts = (inverse, tail_bound, mbw, mbh, mdr)
+    def forward(x, w, h, d, inverse, tail_bound, mbw, mbh, mdr):
         return _forward(x, w, h, d, inverse, tail_bound, mbw, mbh, mdr)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:4])
+        ctx.consts = inputs[4:]
 
     @staticmethod
     def backward(ctx, grad_y, grad_ld):
         x, w, h, d = ctx.saved_tensors
-        needs = ctx.needs_input_grad[:4]
-        if x.is_cuda:
-            grads = _launch_backward(x, w, h, d, grad_y, grad_ld, needs, *ctx.consts)
-        else:
-            grads = rational_quadratic_spline_vjp_plain(x, w, h, d, grad_y, grad_ld, *ctx.consts)
-            grads = [g if need else None for g, need in zip(grads, needs)]
+        grads = _RQSplineBackward.apply(x, w, h, d, grad_y, grad_ld,
+                                        tuple(ctx.needs_input_grad[:4]), *ctx.consts)
         return (*grads, None, None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, h, d, *consts):
+        merged = _merge(info.batch_size, in_dims[:4], (x, w, h, d))
+        return _RQSpline.apply(*merged, *consts), (0, 0)
+
+
+class _RQSplineBackward(torch.autograd.Function):
+    """The spline's VJP: the backward kernel on CUDA tensors, the plain VJP
+    on CPU ones; None for the gradients that ``needs`` does not ask for.
+    Its ``vmap`` rule merges the batch axis as ``_RQSpline``'s does. No
+    second derivative."""
+
+    @staticmethod
+    def forward(x, w, h, d, grad_y, grad_ld, needs, inverse, tail_bound, mbw, mbh, mdr):
+        consts = (inverse, tail_bound, mbw, mbh, mdr)
+        if x.is_cuda:
+            return tuple(_launch_backward(x, w, h, d, grad_y, grad_ld, needs, *consts))
+        if x.device.type != "cpu":
+            raise ValueError(f"no spline kernel for device {x.device}")
+        grads = rational_quadratic_spline_vjp_plain(x, w, h, d, grad_y, grad_ld, *consts)
+        return tuple(g if need else None for g, need in zip(grads, needs))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the RQ spline's gradient is not differentiable here")
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, h, d, grad_y, grad_ld, needs, *consts):
+        merged = _merge(info.batch_size, in_dims[:6], (x, w, h, d, grad_y, grad_ld))
+        grads = _RQSplineBackward.apply(*merged, needs, *consts)
+        return grads, tuple(None if g is None else 0 for g in grads)
 
 
 def rational_quadratic_spline(
@@ -523,16 +589,19 @@ def rational_quadratic_spline(
     A CUDA tensor goes through the kernel (one launch for all leading axes)
     and its gradient through the backward kernel (one launch), a CPU tensor
     through the plain version and its VJP. float32 only; the parameters
-    must have unit stride along the bins; 2 <= K <= ``MAX_BINS``. Without a
-    gradient to record (``no_grad``, or no input that requires one) the
-    ``autograd.Function`` is skipped.
+    must have unit stride along the bins; 2 <= K <= ``MAX_BINS``. Under
+    ``torch.func`` transforms (``vmap``, ``grad``) it always goes through
+    the ``autograd.Function``, whose rules unwrap the transformed tensors:
+    one launch per call, whatever the vmapped batch. Without a transform
+    and without a gradient to record (``no_grad``, or no input that
+    requires one) the ``autograd.Function`` is skipped.
     """
     x, w, h, d = inputs, unnormalized_widths, unnormalized_heights, unnormalized_derivatives
     _check(x, w, h, d)
     consts = (bool(inverse), float(tail_bound), float(min_bin_width),
               float(min_bin_height), float(min_derivative))
-    if torch.is_grad_enabled() and (
+    if torch._C._are_functorch_transforms_active() or (torch.is_grad_enabled() and (
         x.requires_grad or w.requires_grad or h.requires_grad or d.requires_grad
-    ):
+    )):
         return _RQSpline.apply(x, w, h, d, *consts)
     return _forward(x, w, h, d, *consts)

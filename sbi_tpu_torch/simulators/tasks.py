@@ -1,7 +1,7 @@
-"""Benchmark tasks of the NSF path: two_moons and slcp.
+"""Benchmark tasks of the ported paths: two_moons, slcp and gaussian_linear.
 
 PyTorch counterpart of ``sbi_tpu/simulators/tasks.py`` (simulators, SLCP's
-exact likelihood and ``get_task`` for these two tasks). Simulators draw
+exact likelihood and ``get_task`` for these three tasks). Simulators draw
 their noise from an explicit ``torch.Generator`` on the device of ``theta``.
 """
 
@@ -13,8 +13,9 @@ from typing import Callable, Optional
 
 import torch
 
-from ..utils.distributions import BoxUniform, Distribution
-from ..utils.sbiutils import ensure_theta_batched, next_generator
+from ..utils.distributions import BoxUniform, Distribution, MultivariateNormal
+from ..utils.sbiutils import ensure_theta_batched, next_generator, resolve_device
+from .linear_gaussian import linear_gaussian, true_posterior_linear_gaussian_mvn_prior
 
 
 def two_moons_simulator(theta, generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -118,7 +119,22 @@ def get_task(name: str, device=None) -> Task:
             x_dim=8,
             log_likelihood=slcp_log_likelihood,
         )
-    if name in ("gaussian_linear", "linear_mvg_2d", "gaussian_mixture"):
+    if name == "gaussian_linear":
+        # 10-D; prior N(0, 0.1 I), likelihood N(theta, 0.1 I).
+        device = resolve_device(device)
+        eye = 0.1 * torch.eye(10, device=device)
+        zeros = torch.zeros(10, device=device)
+
+        def sim(theta, generator=None):
+            return linear_gaussian(theta, zeros, eye, generator=generator)
+
+        def ref(x_o, num_samples, generator=None):
+            post = true_posterior_linear_gaussian_mvn_prior(x_o, zeros, eye, zeros, eye)
+            return post.sample((num_samples,), generator=generator)
+
+        return Task("gaussian_linear", MultivariateNormal(zeros, covariance_matrix=eye, device=device), sim,
+                    10, 10, reference_sampler=ref)
+    if name in ("linear_mvg_2d", "gaussian_mixture"):
         raise NotImplementedError(
             f"Task '{name}' is not ported yet; it comes with a later slice."
         )

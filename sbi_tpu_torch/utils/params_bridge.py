@@ -14,17 +14,21 @@ imports no JAX. Layer names follow flax:
 flax ``Dense`` kernels are (in, out) and torch ``Linear`` weights (out, in),
 so kernels are transposed; the ``MaskedDense`` masks are built from the same
 degrees and stored transposed by the module itself.
+
+``load_stacked_flax_params`` loads an ensemble's stacked parameters (each
+leaf with a leading member axis, as ``train_ensemble`` holds them in
+``_ensemble_stacked_params``) into one estimator per member.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..neural_nets.estimators.base import ConditionalEstimator
+from ..neural_nets.estimators.base import ConditionalEstimator, stack_nets
 from ..neural_nets.estimators.flows import (
     LULinear,
     MADENet,
@@ -98,6 +102,33 @@ def load_flax_params(
     if condition_loc is not None:
         estimator.condition_transform = _affine(condition_loc, condition_scale, device)
     return estimator
+
+
+def load_stacked_flax_params(
+    estimators: Sequence[ConditionalEstimator],
+    stacked_params: Mapping,
+    input_loc=None,
+    input_scale=None,
+    condition_loc=None,
+    condition_scale=None,
+) -> Dict[str, torch.Tensor]:
+    """Load member i's slice of ``stacked_params`` into ``estimators[i]``
+    (``load_flax_params``) and return the port's stacked state,
+    ``stack_nets`` of their nets. The members share one z-scoring: the
+    first member's transforms, as ``train_ensemble`` shares them."""
+    first = estimators[0]
+    load_flax_params(first, _member(stacked_params, 0), input_loc, input_scale,
+                     condition_loc, condition_scale)
+    for i, est in enumerate(estimators[1:], start=1):
+        load_flax_params(est, _member(stacked_params, i))
+        est.input_transform, est.condition_transform = first.input_transform, first.condition_transform
+    return stack_nets([est.net for est in estimators])
+
+
+def _member(tree, i):
+    if isinstance(tree, Mapping):
+        return {k: _member(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
 
 
 def _affine(loc, scale, device: Optional[torch.device]) -> AffineTransform:

@@ -55,7 +55,9 @@ def test_import_leaves_jax_out():
         "import sys, sbi_tpu_torch\n"
         "import sbi_tpu_torch.inference, sbi_tpu_torch.neural_nets, "
         "sbi_tpu_torch.simulators, sbi_tpu_torch.utils.params_bridge, "
-        "sbi_tpu_torch.samplers.mcmc, sbi_tpu_torch.inference.trainers.nle.nle_a\n"
+        "sbi_tpu_torch.samplers.mcmc, sbi_tpu_torch.inference.trainers.nle.nle_a, "
+        "sbi_tpu_torch.inference.posteriors.ensemble_posterior, "
+        "sbi_tpu_torch.simulators.linear_gaussian\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'sbi_tpu')]\n"
         "assert not bad, bad\n"
@@ -154,6 +156,30 @@ def test_nle_and_mcmc_default_to_cuda():
     assert trainer._neural_net.device == torch.device("cpu")
     posterior = trainer.build_posterior(mcmc_parameters=dict(num_chains=4, warmup_steps=5))
     assert posterior.sample((8,), x=np.zeros(2, np.float32)).shape == (8, 2)
+
+
+def test_ensembles_default_to_cuda():
+    """The gaussian_linear task raises without CUDA; with device="cpu" an
+    ensemble trains, and its posterior samples, on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+    from sbi_tpu_torch.inference import NPE, EnsemblePosterior
+    from sbi_tpu_torch.neural_nets import posterior_nn
+    from sbi_tpu_torch.simulators import get_task
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_task("gaussian_linear")
+    task = get_task("gaussian_linear", device="cpu")
+    theta = task.prior.sample((60,))
+    small = posterior_nn("nsf", hidden_features=8, num_transforms=1, interleave_affine=True,
+                         device="cpu")
+    trainer = NPE(prior=task.prior, density_estimator=small, device="cpu")
+    members = trainer.append_simulations(theta, task.simulator(theta)).train_ensemble(
+        num_members=2, max_num_epochs=1)
+    assert all(m.device == torch.device("cpu") for m in members)
+    posterior = trainer.build_ensemble_posterior()
+    assert isinstance(posterior, EnsemblePosterior)
+    assert posterior.sample((5,), x=np.zeros(10, np.float32)).shape == (5, 10)
 
 
 def test_prior_on_another_device_than_the_trainer_raises():
