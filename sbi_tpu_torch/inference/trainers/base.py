@@ -19,8 +19,10 @@ The port keeps what matters of that on the card:
 - best-parameter snapshots are device-side ``state_dict`` clones, taken
   when the validation loss improves and restored at the end.
 
-``epoch_chunk`` is accepted for parity: the port restores the best
-parameters of every epoch exactly.
+``train``'s ``epoch_chunk`` is accepted for parity: the port checks
+convergence and keeps the best parameters every epoch, which is what the
+JAX package does at its default of one epoch a chunk (with longer chunks
+it snapshots chunk-end parameters).
 
 ``train_ensemble`` trains K members as one ``torch.func.vmap`` over their
 stacked parameters (``torch.func.stack_module_state``), through
@@ -28,8 +30,9 @@ stacked parameters (``torch.func.stack_module_state``), through
 ``grad_and_value`` of the members' mean losses, a per-member clip and one
 foreach Adam over the stacked leaves, so it costs about the host ops of
 one model, and each spline launch covers every member (the spline's
-``vmap`` rule). ``mesh=`` and ``ema_params_decay`` come with later slices
-and raise.
+``vmap`` rule). As in the JAX package, it checks patience only at the end
+of each chunk of ``epoch_chunk`` epochs and writes one summary entry a
+chunk. ``mesh=`` comes with a later slice and raises.
 """
 
 from __future__ import annotations
@@ -436,7 +439,6 @@ class NeuralInference(ABC):
         lr_warmup_frac: float = 0.02,
         lr_final_factor: float = 0.01,
         mesh=None,
-        ema_params_decay: Optional[float] = None,
         generator: Optional[torch.Generator] = None,
     ) -> list:
         """Train ``num_members`` independently initialised estimators as one
@@ -453,14 +455,16 @@ class NeuralInference(ABC):
           gradient of all members' mean losses, each member's gradients
           clipped by its own global norm, and one Adam over the stacked
           parameters. One host sync an epoch.
-        - Best-validation snapshots are kept per member on the device
-          (strict ``<``). Patience runs on the host and needs an
-          improvement of 1e-4; training stops when every member is out of
-          patience, or at ``max_num_epochs`` with a warning.
-        - ``epoch_chunk`` is accepted for parity: the JAX package stops only
-          at the end of a chunk of epochs, the port at the first epoch that
-          qualifies. Best parameters are per epoch in both, so the members
-          returned are the same.
+        - Best-validation snapshots are kept per member on the device,
+          every epoch (strict ``<``). Patience runs on the host and needs
+          an improvement of 1e-4.
+        - Epochs run in chunks of ``epoch_chunk`` (the last chunk cut at
+          ``max_num_epochs``), as the JAX package runs them as one program
+          a chunk: the stopping rule is checked only at a chunk's end, so a
+          member out of patience in mid-chunk trains on to the chunk's end,
+          and the summary gets one entry a chunk (its last epoch's mean
+          losses over the members). Training stops when every member is out
+          of patience, or at ``max_num_epochs`` with a warning.
 
         Returns the members (best-validation parameters). They are also in
         ``self._ensemble_estimators``, and the stacked best parameters in
@@ -468,8 +472,6 @@ class NeuralInference(ABC):
         """
         if mesh is not None:
             raise NotImplementedError(f"train_ensemble over a device mesh (mesh=) {_LATER_SLICE}.")
-        if ema_params_decay is not None:
-            raise NotImplementedError(f"ema_params_decay {_LATER_SLICE}.")
         gen = next_generator(generator, self._device)
         theta, x, masks, train_idx, val_idx = self.get_dataloaders(
             start_idx, training_batch_size, validation_fraction, False, generator=gen)
@@ -526,8 +528,11 @@ class NeuralInference(ABC):
         host_best = [math.inf] * K
         since_impr = [0] * K
         steps = epoch = 0
+        chunk_end = 0
+        t0 = time.time()
         while epoch < max_num_epochs:
-            t0 = time.time()
+            if epoch == chunk_end:
+                chunk_end = epoch + min(epoch_chunk, max_num_epochs - epoch)
             perm = torch.rand(K, m, generator=gen, device=dev).argsort(dim=1)
             batches = member_train_idx.gather(1, perm[:, : n_batches * batch_size])
             batches = batches.reshape(K, n_batches, batch_size)
@@ -560,9 +565,12 @@ class NeuralInference(ABC):
                     host_best[i], since_impr[i] = v, 0
                 else:
                     since_impr[i] += 1
+            if epoch < chunk_end:
+                continue
             self._summary["training_loss"].append(sum(train_losses) / K)
             self._summary["validation_loss"].append(sum(val_losses) / K)
             self._summary["epoch_durations_sec"].append(time.time() - t0)
+            t0 = time.time()
             if min(since_impr) >= stop_after_epochs:
                 break
         if epoch >= max_num_epochs:

@@ -4,9 +4,9 @@ PyTorch counterpart of ``sbi_tpu/inference/trainers/nle/nle_base.py``: the
 loss is -log p(x | theta) (the estimator's input is x, its condition
 theta), trained by ``NeuralInference._run_training_loop``; the posterior is
 the likelihood potential times the prior, sampled by the vectorized slice
-sampler (``MCMCPosterior``). The other samplers (``sample_with="vi"``,
-``"rejection"``, ``"importance"``) and ``posterior_parameters`` come with
-later slices.
+sampler (``MCMCPosterior``), or as typed ``posterior_parameters``
+describe it. The other samplers (``sample_with="vi"``, ``"rejection"``,
+``"importance"``) come with later slices.
 """
 
 from __future__ import annotations
@@ -149,16 +149,32 @@ class LikelihoodEstimatorTrainer(NeuralInference):
         from ...posteriors.mcmc_posterior import MCMCPosterior
         from ...potentials.likelihood_based_potential import likelihood_estimator_based_potential
 
-        if posterior_parameters is not None:
-            raise NotImplementedError(f"build_posterior(posterior_parameters=...) {_LATER_SLICE}.")
-        if sample_with != "mcmc":
-            raise NotImplementedError(f"build_posterior(sample_with='{sample_with}') {_LATER_SLICE}.")
         prior = prior if prior is not None else self._prior
         if prior is None:
             raise ValueError("NLE needs a prior to build a posterior.")
         estimator = density_estimator if density_estimator is not None else self._neural_net
         if estimator is None:
             raise ValueError("Run `.train()` first or pass a density_estimator.")
+        if posterior_parameters is not None:
+            from ...posteriors.posterior_parameters import (
+                build_posterior_from_parameters,
+                check_legacy_sampler_args,
+            )
+
+            check_legacy_sampler_args(
+                {
+                    "mcmc_parameters": mcmc_parameters,
+                    "vi_parameters": vi_parameters,
+                    "rejection_sampling_parameters": rejection_sampling_parameters,
+                    "importance_sampling_parameters": importance_sampling_parameters,
+                },
+                {"sample_with": (sample_with, "mcmc"), "mcmc_method": (mcmc_method, "slice_jax_vectorized")},
+            )
+            self._posterior = build_posterior_from_parameters(
+                posterior_parameters, estimator.snapshot(), prior, kind="nle")
+            return self._posterior
+        if sample_with != "mcmc":
+            raise NotImplementedError(f"build_posterior(sample_with='{sample_with}') {_LATER_SLICE}.")
         potential_fn, theta_transform = likelihood_estimator_based_potential(
             estimator.snapshot(), prior, x_o=None)
         self._posterior = MCMCPosterior(

@@ -4,8 +4,8 @@ PyTorch counterpart of ``sbi_tpu/inference/trainers/npe/npe_base.py``:
 ``append_simulations(..., proposal=)`` round bookkeeping, ``train()``, the
 first-round loss -log q(theta | x) (optionally weighted by a calibration
 kernel), the lazy net build from the first round's data, and
-``build_posterior(sample_with="direct")`` and ``"mcmc"``. The other
-samplers and ``posterior_parameters`` come with later slices.
+``build_posterior``: ``sample_with="direct"`` or ``"mcmc"``, or typed
+``posterior_parameters``. The other samplers come with later slices.
 """
 
 from __future__ import annotations
@@ -192,21 +192,26 @@ class PosteriorEstimatorTrainer(NeuralInference):
     ):
         """A ``DirectPosterior`` (``sample_with="direct"``) or an
         ``MCMCPosterior`` over the posterior potential (``"mcmc"``), over a
-        frozen copy of the estimator and the prior. The other
-        ``sample_with`` values come with later slices."""
+        frozen copy of the estimator and the prior; or the posterior that
+        ``posterior_parameters`` describes (``build_posterior_from_parameters``).
+        The other ``sample_with`` values come with later slices."""
         from ...posteriors.direct_posterior import DirectPosterior
         from ...posteriors.mcmc_posterior import MCMCPosterior
         from ...potentials.posterior_based_potential import posterior_estimator_based_potential
 
-        if posterior_parameters is not None:
-            raise NotImplementedError(f"build_posterior(posterior_parameters=...) {_LATER_SLICE}.")
-        if sample_with not in ("direct", "mcmc"):
-            raise NotImplementedError(f"build_posterior(sample_with='{sample_with}') {_LATER_SLICE}.")
         prior = prior if prior is not None else self._prior
         estimator = density_estimator if density_estimator is not None else self._neural_net
         if estimator is None:
             raise ValueError("Run `.train()` first or pass a density_estimator.")
         estimator = estimator.snapshot()
+        if posterior_parameters is not None:
+            from ...posteriors.posterior_parameters import build_posterior_from_parameters
+
+            self._posterior = build_posterior_from_parameters(
+                posterior_parameters, estimator, prior, kind="npe")
+            return self._posterior
+        if sample_with not in ("direct", "mcmc"):
+            raise NotImplementedError(f"build_posterior(sample_with='{sample_with}') {_LATER_SLICE}.")
         if sample_with == "direct":
             self._posterior = DirectPosterior(
                 posterior_estimator=estimator,

@@ -11,6 +11,7 @@ from .flows import (
     RQSCoupling,
     rational_quadratic_spline,
 )
+from .mdn import MDNModule, MixtureDensityEstimator, MoG, MultivariateGaussianMDN
 
 __all__ = [
     "ConditionalDensityEstimator",
@@ -18,10 +19,14 @@ __all__ = [
     "FlowEstimator",
     "FlowModule",
     "LULinear",
+    "MDNModule",
     "MADENet",
     "MaskedAffineAutoregressive",
     "MaskedDense",
     "MaskedRQSAutoregressive",
+    "MixtureDensityEstimator",
+    "MoG",
+    "MultivariateGaussianMDN",
     "Permutation",
     "RQSCoupling",
     "rational_quadratic_spline",

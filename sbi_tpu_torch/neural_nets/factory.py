@@ -1,7 +1,7 @@
 """String -> builder factories, returning ``build_fn(batch_theta, batch_x)``
 closures so nets are shaped and z-scored from the first data batch
 (PyTorch counterpart of ``sbi_tpu/neural_nets/factory.py``). The port
-has ``model="nsf"`` and ``model="maf"``, for posteriors and for
+has ``model="nsf"``, ``"maf"`` and ``"mdn"``, for posteriors and for
 likelihoods; the other models come with later slices.
 """
 
@@ -29,23 +29,25 @@ def posterior_nn(
 
     def build_fn(batch_theta, batch_x):
         from .net_builders.flow import build_maf, build_nsf
+        from .net_builders.mdn import build_mdn
 
-        builders = {"nsf": build_nsf, "maf": build_maf}
-        if model not in builders:
-            raise NotImplementedError(
-                f"posterior_nn(model='{model}') is not ported yet; 'nsf' and 'maf' "
-                "are. The other models come with later slices."
-            )
-        return builders[model](
-            batch_theta,
-            batch_x,
+        common = dict(
             z_score_theta=z_score_theta,
             z_score_x=z_score_x,
             hidden_features=hidden_features,
-            num_transforms=num_transforms,
-            num_bins=num_bins,
             embedding_net=embedding_net,
             **kwargs,
+        )
+        if model == "mdn":
+            return build_mdn(batch_theta, batch_x, num_components=num_components, **common)
+        builders = {"nsf": build_nsf, "maf": build_maf}
+        if model not in builders:
+            raise NotImplementedError(
+                f"posterior_nn(model='{model}') is not ported yet; 'nsf', 'maf' and "
+                "'mdn' are. The other models come with later slices."
+            )
+        return builders[model](
+            batch_theta, batch_x, num_transforms=num_transforms, num_bins=num_bins, **common
         )
 
     return build_fn

@@ -10,6 +10,7 @@ from .sbiutils import (
     draw_from_proposal,
     ensure_theta_batched,
     handle_invalid_x,
+    mog_log_prob,
     next_generator,
     resolve_device,
     seed_all_backends,

@@ -1,4 +1,4 @@
-"""Load ``sbi_tpu`` flow parameters into this package's estimator.
+"""Load ``sbi_tpu`` flow and MDN parameters into this package's estimator.
 
 The JAX package's parameters arrive as a nested dict of numpy arrays (for
 example ``jax.tree_util.tree_map(np.asarray, est.params)``); this module
@@ -9,7 +9,11 @@ imports no JAX. Layer names follow flax:
   - ``layers_{i}/made/{MaskedDense_j, Dense_0}``: ``MaskedRQSAutoregressive``
     and ``MaskedAffineAutoregressive`` (``Dense_0`` is the context
     injection);
-  - ``layers_{i}/{lower, upper, log_diag, bias}``: ``LULinear``.
+  - ``layers_{i}/{lower, upper, log_diag, bias}``: ``LULinear``;
+  - ``Dense_{j}`` of an ``MDNModule``: the hidden layers ``Dense_0`` to
+    ``Dense_{L-1}``, then the logits ``Dense_L``, means ``Dense_{L+1}``,
+    diagonal ``Dense_{L+2}`` and off-diagonal ``Dense_{L+3}`` heads
+    (``L = num_layers``; no off-diagonal head at D = 1).
 
 flax ``Dense`` kernels are (in, out) and torch ``Linear`` weights (out, in),
 so kernels are transposed; the ``MaskedDense`` masks are built from the same
@@ -29,6 +33,7 @@ import torch
 from torch import nn
 
 from ..neural_nets.estimators.base import ConditionalEstimator, stack_nets
+from ..neural_nets.estimators.mdn import MDNModule
 from ..neural_nets.estimators.flows import (
     LULinear,
     MADENet,
@@ -79,7 +84,9 @@ def load_flax_params(
     used = 0
     device = estimator.device
     with torch.no_grad():
-        for i, layer in enumerate(estimator.net.layers):
+        if isinstance(estimator.net, MDNModule):
+            used = _load_mdn(estimator.net, tree)
+        for i, layer in enumerate(getattr(estimator.net, "layers", ())):
             name = f"layers_{i}"
             if isinstance(layer, Permutation):
                 continue
@@ -102,6 +109,15 @@ def load_flax_params(
     if condition_loc is not None:
         estimator.condition_transform = _affine(condition_loc, condition_scale, device)
     return estimator
+
+
+def _load_mdn(net: MDNModule, tree: Mapping) -> int:
+    if net.embedding_net is not None:
+        raise NotImplementedError("bridging an MDN's embedding net comes with a later slice")
+    heads = list(net.hidden) + [net.logits, net.means, net.diag]
+    if net.off is not None:
+        heads.append(net.off)
+    return sum(_load_dense(dense, tree[f"Dense_{j}"], f"Dense_{j}") for j, dense in enumerate(heads))
 
 
 def load_stacked_flax_params(

@@ -9,6 +9,7 @@ JAX package's global key store.
 
 from __future__ import annotations
 
+import math
 import warnings
 from typing import Optional, Tuple
 
@@ -246,6 +247,20 @@ def draw_from_proposal(proposal, generator: Optional[torch.Generator], num_sampl
     package tells the two apart because their ``sample`` signatures differ;
     here both are ``sample(sample_shape, generator=...)``."""
     return proposal.sample((num_samples,), generator=generator)
+
+
+def mog_log_prob(theta: torch.Tensor, logits_pp: torch.Tensor, means_pp: torch.Tensor,
+                 precisions_pp: torch.Tensor) -> torch.Tensor:
+    """log prob of a mixture of Gaussians given by unnormalized logits
+    (batch, K), means (batch, K, D) and precisions (batch, K, D, D), at
+    theta (batch, D) (mirror of ``sbi_tpu/utils/sbiutils.py:261``)."""
+    D = theta.shape[-1]
+    log_weights = torch.log_softmax(logits_pp, dim=-1)
+    diff = theta[:, None, :] - means_pp
+    quad = torch.einsum("bki,bkij,bkj->bk", diff, precisions_pp, diff)
+    _, logabsdet = torch.linalg.slogdet(precisions_pp)
+    log_comp = 0.5 * (logabsdet - D * math.log(2 * math.pi) - quad)
+    return torch.logsumexp(log_weights + log_comp, dim=-1)
 
 
 def ensure_theta_batched(theta, device=None) -> torch.Tensor:

@@ -27,6 +27,7 @@ from sbi_tpu_torch.inference.posteriors import DirectPosterior
 from sbi_tpu_torch.utils import BoxUniform
 
 from .test_torch_flows import make_pair
+from ._torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 LOW, HIGH = -2.0, 2.0  # about 60% of the flows' mass lands inside
 

@@ -29,6 +29,7 @@ from sbi_tpu_torch.neural_nets.estimators.flows import (
 )
 from sbi_tpu_torch.neural_nets.net_builders.flow import build_nsf
 from sbi_tpu_torch.utils.params_bridge import load_flax_params
+from ._torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 SMALL = dict(hidden_features=16, num_transforms=2)

@@ -12,6 +12,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from ._torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sbi_tpu")
@@ -57,7 +58,11 @@ def test_import_leaves_jax_out():
         "sbi_tpu_torch.simulators, sbi_tpu_torch.utils.params_bridge, "
         "sbi_tpu_torch.samplers.mcmc, sbi_tpu_torch.inference.trainers.nle.nle_a, "
         "sbi_tpu_torch.inference.posteriors.ensemble_posterior, "
-        "sbi_tpu_torch.simulators.linear_gaussian\n"
+        "sbi_tpu_torch.simulators.linear_gaussian, "
+        "sbi_tpu_torch.neural_nets.estimators.mdn, sbi_tpu_torch.neural_nets.net_builders.mdn, "
+        "sbi_tpu_torch.inference.trainers.npe.npe_a, sbi_tpu_torch.inference.trainers.npe.npe_b, "
+        "sbi_tpu_torch.inference.posteriors.npe_a_posterior, "
+        "sbi_tpu_torch.inference.posteriors.posterior_parameters\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'sbi_tpu')]\n"
         "assert not bad, bad\n"
@@ -88,8 +93,10 @@ def test_entry_points_default_to_cuda():
         get_task("slcp")
     est = build_nsf(theta, x, hidden_features=8, num_transforms=1, device="cpu")
     assert est.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         posterior_nn("mdn")(theta, x)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        posterior_nn("made")(theta, x)
 
     # Training: the trainer, a builder made without a device, the simulation
     # helper and infer() raise without CUDA; with device="cpu" they run.
@@ -180,6 +187,34 @@ def test_ensembles_default_to_cuda():
     posterior = trainer.build_ensemble_posterior()
     assert isinstance(posterior, EnsemblePosterior)
     assert posterior.sample((5,), x=np.zeros(10, np.float32)).shape == (5, 10)
+
+
+def test_mdn_family_defaults_to_cuda():
+    """posterior_nn("mdn"), NPE_A and NPE_B raise without CUDA; with
+    device="cpu" they train, and their posteriors sample, on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+    from sbi_tpu_torch.inference import NPE_A, NPE_B, DirectPosterior, NPE_A_Posterior
+    from sbi_tpu_torch.neural_nets import posterior_nn
+    from sbi_tpu_torch.utils import BoxUniform
+
+    prior = BoxUniform(-np.ones(2), np.ones(2), device="cpu")
+    theta = prior.sample((60,))
+    x = theta + 0.1
+    with pytest.raises(RuntimeError, match="CUDA"):
+        posterior_nn("mdn")(theta, x)
+    for cls in (NPE_A, NPE_B):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(prior=prior)
+    small = posterior_nn("mdn", hidden_features=8, num_components=2, device="cpu")
+    for trainer, posterior_type in ((NPE_A(prior=prior, device="cpu"), NPE_A_Posterior),
+                                    (NPE_B(prior=prior, density_estimator=small, device="cpu"),
+                                     DirectPosterior)):
+        trainer.append_simulations(theta, x).train(max_num_epochs=1)
+        assert trainer._neural_net.device == torch.device("cpu")
+        posterior = trainer.build_posterior()
+        assert isinstance(posterior, posterior_type)
+        assert posterior.sample((5,), x=np.zeros(2, np.float32)).shape == (5, 2)
 
 
 def test_prior_on_another_device_than_the_trainer_raises():

@@ -52,6 +52,7 @@ from sbi_tpu_torch.samplers.mcmc import (
 )
 from sbi_tpu_torch.samplers.mcmc.init_strategy import categorical
 from sbi_tpu_torch.utils import BoxUniform, c2st_torch, mcmc_transform, transformed_potential
+from ._torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 # The correlated Gaussian of tests/test_slice_equivalence.py.
 MEAN = np.array([0.8, -0.5], np.float32)

@@ -41,6 +41,7 @@ from sbi_tpu_torch.inference import (
     SNL,
     LikelihoodBasedPotential,
     MCMCPosterior,
+    VIPosteriorParameters,
     infer,
     likelihood_estimator_based_potential,
     simulate_for_sbi,
@@ -54,6 +55,7 @@ from sbi_tpu_torch.utils import BoxUniform
 
 from .test_torch_flows import make_pair
 from .test_torch_npe import _assert_grads_match, _maf_pair
+from ._torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 LOSS_ATOL = 1e-4
@@ -190,7 +192,7 @@ def test_tiny_nle_trains_and_samples(model):
     assert batched.shape == (15, 3, 2)
     assert bool(task.prior.within_support(batched.reshape(-1, 2)).all())
     for option in (dict(sample_with="vi"), dict(sample_with="rejection"),
-                   dict(posterior_parameters={})):
+                   dict(posterior_parameters=VIPosteriorParameters())):
         with pytest.raises(NotImplementedError, match="later slice"):
             trainer.build_posterior(**option)
 

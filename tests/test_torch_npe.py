@@ -56,6 +56,7 @@ from sbi_tpu_torch.utils import BoxUniform
 from sbi_tpu_torch.utils.params_bridge import load_flax_params
 
 from .test_torch_flows import SMALL, make_pair
+from ._torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 LOSS_ATOL = 1e-4
 GRAD_ATOL, GRAD_RTOL = 1e-4, 1e-3

@@ -23,6 +23,7 @@ import torch
 from sbi_tpu.neural_nets.estimators.flows import rational_quadratic_spline as jax_rqs
 from sbi_tpu.ops.rqs_pallas import rational_quadratic_spline_pallas
 from sbi_tpu_torch.ops import rqs
+from ._torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 B = 3.0
 Y_ATOL, LD_ATOL, GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4, 1e-5, 1e-4

@@ -33,6 +33,7 @@ import torch
 
 from sbi_tpu.neural_nets.estimators.flows import rational_quadratic_spline as jax_rqs
 from sbi_tpu_torch.ops import rqs
+from ._torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 B = 3.0
 TORCH_ATOL, TORCH_RTOL = 1e-5, 1e-5

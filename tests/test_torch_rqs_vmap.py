@@ -27,6 +27,7 @@ from sbi_tpu.ops.rqs_pallas import rational_quadratic_spline_pallas
 from sbi_tpu_torch.ops import rqs
 
 from .test_torch_rqs import B, GRAD_ATOL, GRAD_RTOL, LD_ATOL, PARAM_SCALE, Y_ATOL
+from ._torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 K_BINS = 10
 MEMBERS, ROWS, COLS = 4, 6, 3
@@ -44,16 +45,6 @@ def _inputs(seed=0):
 
 def _split(p):
     return p[..., :K_BINS], p[..., K_BINS:2 * K_BINS], p[..., 2 * K_BINS:]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tests' tensors are small: one intra-op thread keeps the torch
-    side from contending with the other test processes for the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class _Counted:

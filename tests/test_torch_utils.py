@@ -31,6 +31,7 @@ from sbi_tpu_torch.utils.sbiutils import (
     warn_if_invalid_for_zscoring,
     z_score_stats,
 )
+from ._torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
