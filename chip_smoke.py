@@ -50,7 +50,16 @@ public entry points:
   each beside a control scored in the same run, train steps/s, ``sample``
   and ``log_prob`` rates, ``MoG.sample`` with every host sync refused), an
   ensemble of MDNs, two rounds of NPE-C with the non-atomic MoG loss (one
-  step with every host sync refused) and two rounds of NPE-A.
+  step with every host sync refused) and two rounds of NPE-A;
+- vector fields, which reach no kernel and must launch none: FMPE and
+  NPSE-VE on the 2-D linear Gaussian (C2ST against the analytic posterior,
+  ``log_prob``, ``sample_batched``, ODE sampling), FMPE with a CNN
+  embedding on a 32-D x (BASELINE config 4: C2ST gated beside a control,
+  train steps/s, the device-busy share of an epoch, ODE sample and
+  ``log_prob`` rates, a training step, diffusion steps and RK4 steps with
+  every host sync refused), and bench.py's ``diffuser_sampling`` (500
+  reverse-SDE steps for 1,024 samples: samples/s, host us a step, device
+  operations a step, the busy share).
 
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero. The kernel launch counters are zeroed just before the main path
@@ -221,6 +230,29 @@ SBI_TPU_MDN_10D = {"c2st_mean": [0.5923, 0.6150, 0.7231], "c2st_min": [0.5575, 0
 SBI_TPU_NLE_TWO_MOONS = {"c2st_mean": 0.5842, "c2st": [0.5535, 0.6445, 0.5545],
                          "simulations": 2000, "density_estimator": "maf",
                          "classifier": "sklearn", "source": "bm_results_round1.csv:6"}
+# Vector fields. tests/test_vector_field.py:18-54: the 2-D linear Gaussian
+# (shift -1, covariance 0.3 I, prior N(0, I)), 3,000 simulations, batch 100,
+# stop_after_epochs 30 (capped here at VF_MAX_EPOCHS), 1,000 draws at
+# x_o = 0 scored by C2ST against as many analytic-posterior draws, gated
+# at that test's 0.62 (0.5 + 0.12) for FMPE and NPSE-VE; log_prob of 20
+# reference draws; sample_batched over three observations in 100 steps.
+# BASELINE config 4 (tests/test_vector_field.py:218-265): D = 2, x = A theta
+# + 0.3 + N(0, I) with a 32 x 2 sinusoidal design A, 4,000 simulations,
+# CNNEmbedding(input_shape=(32,), output_dim=16, out_channels_per_layer=(32,
+# 64), num_linear_units=100), hidden 128, batch 200, patience 30, at most
+# 300 epochs; C2ST at x_o = 0.3 (theta = 0) gated at that test's 0.65 (0.5
+# + 0.15), beside a control, the analytic posterior moved VF_CONTROL_SHIFT_SD
+# posterior standard deviations in every coordinate, which must fail it.
+# Data and reference draws come from numpy (vf_data, cnn_data), so the JAX
+# package can train on the same inputs. bench.py:369-399's
+# diffuser_sampling: VP, theta 5-D, x 8-D, fresh weights, 500 steps, 1,024
+# samples.
+VF_SIMS, VF_BATCH, VF_PATIENCE, VF_MAX_EPOCHS, VF_DRAWS, VF_C2ST_MAX = 3_000, 100, 30, 400, 1_000, 0.62
+VF_BATCHED_STEPS = 100
+CNN_SIMS, CNN_L, CNN_BATCH, CNN_PATIENCE, CNN_MAX_EPOCHS, CNN_C2ST_MAX = 4_000, 32, 200, 30, 300, 0.65
+CNN_HIDDEN, CNN_RATE_DRAWS, VF_CONTROL_SHIFT_SD = 128, 1_000, 1.0
+DIFFUSER_THETA_DIM, DIFFUSER_X_DIM, DIFFUSER_STEPS, DIFFUSER_SAMPLES = 5, 8, 500, 1_024
+STRICT_DIFFUSER_STEPS, STRICT_RK4_STEPS = 5, 3
 
 
 _START = time.perf_counter()
@@ -1992,6 +2024,235 @@ def mdn_ensemble(torch, device, seed, data):
          validation_loss=inference.summary["validation_loss"])
 
 
+# ---------------------------------------------------------------------------
+# Vector fields: FMPE and NPSE
+# ---------------------------------------------------------------------------
+
+
+def vf_data(seed):
+    """The 2-D linear Gaussian's inputs, drawn with numpy from ``seed``:
+    VF_SIMS theta from N(0, I), x = theta - 1 + N(0, 0.3 I), and VF_DRAWS
+    draws from the analytic posterior at x_o = 0, N((x_o + 1) / 1.3, 0.3 /
+    1.3 I)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 300)
+    theta = rng.standard_normal((VF_SIMS, 2)).astype(np.float32)
+    x = (theta + MDN_SHIFT + math.sqrt(MDN_LIK_VAR) * rng.standard_normal((VF_SIMS, 2))
+         ).astype(np.float32)
+    post_var = 1.0 / (1.0 + 1.0 / MDN_LIK_VAR)
+    ref = (post_var / MDN_LIK_VAR * -MDN_SHIFT
+           + math.sqrt(post_var) * rng.standard_normal((VF_DRAWS, 2))).astype(np.float32)
+    return theta, x, ref
+
+
+def cnn_data(seed):
+    """BASELINE config 4's inputs, drawn with numpy from ``seed``: CNN_SIMS
+    theta from N(0, I), x = A theta + 0.3 + N(0, I) with A = [sin(2 pi t),
+    cos(4 pi t)] at t = i / 32; x_o = 0.3 (theta = 0); VF_DRAWS draws from
+    the analytic posterior N(S A^T (x_o - 0.3), S), S = (I + A^T A)^-1, and as
+    many from the control, its mean moved VF_CONTROL_SHIFT_SD posterior
+    standard deviations in every coordinate."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 310)
+    t = np.arange(CNN_L) / CNN_L
+    A = np.stack([np.sin(2 * np.pi * t), np.cos(4 * np.pi * t)], axis=1)
+    theta = rng.standard_normal((CNN_SIMS, 2))
+    x = theta @ A.T + 0.3 + rng.standard_normal((CNN_SIMS, CNN_L))
+    x_o = np.full((1, CNN_L), 0.3)
+    cov = np.linalg.inv(np.eye(2) + A.T @ A)
+    mean = cov @ A.T @ (x_o[0] - 0.3)
+    chol = np.linalg.cholesky(cov)
+    ref = mean + rng.standard_normal((VF_DRAWS, 2)) @ chol.T
+    control = (mean + VF_CONTROL_SHIFT_SD * np.sqrt(np.diag(cov))
+               + rng.standard_normal((VF_DRAWS, 2)) @ chol.T)
+    return tuple(a.astype(np.float32) for a in (theta, x, x_o, ref, control))
+
+
+def vf_train(torch, inference, theta, x, batch, patience, max_epochs, gen):
+    """``append_simulations(...).train(...)`` to patience (capped at
+    ``max_epochs``): (seconds, epochs, optimizer steps)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "Maximum number of epochs reached"
+        _, t = sync_time(torch, lambda: inference.append_simulations(theta, x).train(
+            training_batch_size=batch, stop_after_epochs=patience, max_num_epochs=max_epochs,
+            generator=gen))
+    return t, inference.summary["epochs_trained"][-1], inference._opt_steps
+
+
+def vf_linear_gaussian(torch, device, seed):
+    """FMPE and NPSE-VE on the 2-D linear Gaussian (tests/test_vector_field.py):
+    C2ST of the default sampler's draws at x_o = 0 (NPSE: the reverse SDE,
+    500 steps; FMPE: the ODE) and of the ODE's, gated at VF_C2ST_MAX;
+    log_prob of 20 reference draws; sample_batched over three observations,
+    means increasing with x."""
+    from sbi_tpu_torch.inference import FMPE, NPSE
+    from sbi_tpu_torch.utils import MultivariateNormal, c2st_torch
+
+    theta, x, ref = (torch.as_tensor(a, device=device) for a in vf_data(seed))
+    prior = MultivariateNormal(torch.zeros(2, device=device),
+                               covariance_matrix=torch.eye(2, device=device), device=device)
+    x_o = torch.zeros(1, 2, device=device)
+    xs = torch.tensor([[-2.0, -2.0], [0.0, 0.0], [2.0, 2.0]], device=device)
+    results = {}
+    for i, (name, make) in enumerate((("fmpe", lambda: FMPE(prior=prior)),
+                                      ("npse_ve", lambda: NPSE(prior=prior, sde_type="ve")))):
+        gen = torch.Generator(device=device).manual_seed(seed + 320 + i)
+        inference = make()
+        t_train, epochs, steps = vf_train(torch, inference, theta, x, VF_BATCH, VF_PATIENCE,
+                                          VF_MAX_EPOCHS, gen)
+        posterior = inference.build_posterior()
+        samples, t_sample = sync_time(torch, lambda: posterior.sample((VF_DRAWS,), x=x_o,
+                                                                      generator=gen))
+        ode, t_ode = sync_time(torch, lambda: posterior.sample_via_ode((VF_DRAWS,), x=x_o,
+                                                                       generator=gen))
+        lp = posterior.log_prob(ref[:20], x=x_o)
+        batched = posterior.sample_batched((VF_DRAWS // 10,), x=xs, generator=gen,
+                                           steps=VF_BATCHED_STEPS)
+        check(samples.shape == (VF_DRAWS, 2) and ode.shape == (VF_DRAWS, 2)
+              and batched.shape == (VF_DRAWS // 10, 3, 2), f"{name}: shapes")
+        for what, t in (("sample", samples), ("ode", ode), ("log_prob", lp), ("batched", batched)):
+            check(bool(torch.isfinite(t).all()), f"{name}: non-finite {what}")
+        means = batched.mean(0)
+        results[name] = {
+            "epochs": epochs, "max_epochs": VF_MAX_EPOCHS, "train_s": t_train,
+            "steps_per_s": steps / t_train, "sample_with": posterior.sample_with,
+            "c2st": float(c2st_torch(samples, ref, generator=gen)),
+            "c2st_ode": float(c2st_torch(ode, ref, generator=gen)),
+            "sample_s": t_sample, "ode_sample_s": t_ode,
+            "batched_means": means.tolist(),
+            "batched_means_increase": bool((means[2] > means[1]).all() and (means[1] > means[0]).all()),
+            "log_prob_mean": float(lp.mean()),
+        }
+    emit("vf_linear_gaussian", simulations=VF_SIMS, batch=VF_BATCH, patience=VF_PATIENCE,
+         draws=VF_DRAWS, c2st_bar=VF_C2ST_MAX, batched_steps=VF_BATCHED_STEPS, **results)
+    for name, r in results.items():
+        check(r["c2st"] <= VF_C2ST_MAX and r["c2st_ode"] <= VF_C2ST_MAX, f"{name} C2ST {r}")
+        check(r["batched_means_increase"], f"{name}: sample_batched means {r['batched_means']}")
+
+
+def fmpe_cnn_highdim(torch, device, seed):
+    """BASELINE config 4: FMPE with a CNN embedding on a 32-D x, to
+    patience. C2ST at x_o against the analytic posterior, gated at
+    CNN_C2ST_MAX beside the control; train steps/s; ODE sample and log_prob
+    rates at CNN_RATE_DRAWS; a training step and a few RK4 steps (of the
+    state, and of the state with the exact divergence) with every host sync
+    refused; one profiled epoch."""
+    import warnings
+
+    from sbi_tpu_torch.inference import FMPE
+    from sbi_tpu_torch.neural_nets import posterior_flow_nn
+    from sbi_tpu_torch.neural_nets.embedding_nets import CNNEmbedding
+    from sbi_tpu_torch.samplers.ode import odeint_rk4, odeint_with_logdet
+    from sbi_tpu_torch.utils import MultivariateNormal, c2st_torch
+
+    theta, x, x_o, ref, control = (torch.as_tensor(a, device=device) for a in cnn_data(seed))
+    prior = MultivariateNormal(torch.zeros(2, device=device),
+                               covariance_matrix=torch.eye(2, device=device), device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 330)
+    embedding = CNNEmbedding(input_shape=(CNN_L,), output_dim=16, out_channels_per_layer=(32, 64),
+                             num_linear_units=100)
+    inference = FMPE(prior=prior, density_estimator=posterior_flow_nn(
+        embedding_net=embedding, hidden_features=CNN_HIDDEN, device=device,
+        generator=torch.Generator().manual_seed(seed + 330)))
+    t_train, epochs, steps = vf_train(torch, inference, theta, x, CNN_BATCH, CNN_PATIENCE,
+                                      CNN_MAX_EPOCHS, gen)
+    est = inference._neural_net
+    best_validation_loss = inference.summary["best_validation_loss"][-1]
+    posterior = inference.build_posterior()
+    posterior.sample((100,), x=x_o, generator=gen)  # warm-up
+    samples, t_sample = sync_time(torch, lambda: posterior.sample((CNN_RATE_DRAWS,), x=x_o,
+                                                                  generator=gen))
+    lp, t_lp = sync_time(torch, lambda: posterior.log_prob(samples, x=x_o))
+    check(samples.shape == (CNN_RATE_DRAWS, 2) and bool(torch.isfinite(samples).all())
+          and bool(torch.isfinite(lp).all()), "config 4: non-finite sample or log_prob")
+    score = float(c2st_torch(samples[:VF_DRAWS], ref, generator=gen))
+    control_score = float(c2st_torch(control, ref, generator=gen))
+
+    # With every host sync refused: one training step, then RK4 steps.
+    params = [p for p in est.net.parameters() if p.requires_grad]
+    masks = torch.ones(CNN_BATCH, device=device)
+    node = posterior.potential_fn.neural_ode(x_o)
+    z0 = torch.randn((CNN_RATE_DRAWS, 2), generator=gen, device=device)
+    torch.cuda.synchronize() if device.type == "cuda" else None
+    with no_host_sync(torch, device):
+        loss = inference._train_step(lambda tb, xb, mb, g: est.loss(tb, xb, generator=g),
+                                     (theta[:CNN_BATCH], x[:CNN_BATCH], masks), gen, params,
+                                     5.0, None)
+        with torch.no_grad():
+            z1 = odeint_rk4(node.ode_fn, z0, node.t_noise, node.t_data, STRICT_RK4_STEPS)
+            _, logdet = odeint_with_logdet(node.ode_fn, z0[:100], node.t_data, node.t_noise,
+                                           STRICT_RK4_STEPS)
+    check(bool(torch.isfinite(loss)) and bool(torch.isfinite(z1).all())
+          and bool(torch.isfinite(logdet).all()), "config 4: non-finite strict step")
+
+    steps0 = inference._opt_steps
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        epoch_profile = device_breakdown(torch, lambda: inference.train(
+            training_batch_size=CNN_BATCH, max_num_epochs=1, resume_training=True, generator=gen))
+    epoch_profile["steps"] = inference._opt_steps - steps0
+    emit("fmpe_cnn_highdim", simulations=CNN_SIMS, x_dim=CNN_L, hidden=CNN_HIDDEN,
+         batch=CNN_BATCH, patience=CNN_PATIENCE,
+         params=sum(p.numel() for p in est.net.parameters()), epochs=epochs,
+         max_epochs=CNN_MAX_EPOCHS, early_stopped=epochs < CNN_MAX_EPOCHS, train_s=t_train,
+         steps_per_s=steps / t_train,
+         best_validation_loss=best_validation_loss,
+         sample_with=posterior.sample_with, c2st=score, c2st_bar=CNN_C2ST_MAX,
+         control={"mean_shift_sd": VF_CONTROL_SHIFT_SD, "c2st": control_score},
+         ode_sample_draws=CNN_RATE_DRAWS, ode_sample_s=t_sample,
+         ode_samples_per_s=CNN_RATE_DRAWS / t_sample, log_prob_s=t_lp,
+         log_probs_per_s=CNN_RATE_DRAWS / t_lp,
+         sde_samples_per_s=None, sde_note="flow matching defines no SDE: its posterior samples "
+                                          "by the ODE (diffuser_sampling times the SDE)",
+         strict_step_loss=float(loss), strict_rk4_steps=STRICT_RK4_STEPS,
+         profiled_epoch=epoch_profile)
+    check(control_score > CNN_C2ST_MAX, f"config 4: the control passes the gate: {control_score}")
+    check(score <= CNN_C2ST_MAX, f"config 4 C2ST {score}")
+
+
+def diffuser_sampling(torch, device, seed):
+    """bench.py's diffuser_sampling: a VP score estimator with fresh
+    weights (theta 5-D, x 8-D), 500 Euler-Maruyama steps for 1,024 samples.
+    samples/s, host us a step, device operations a step and the busy share
+    of one profiled run; then STRICT_DIFFUSER_STEPS steps, with and
+    without the Langevin corrector, with every host sync refused."""
+    from sbi_tpu_torch.neural_nets import posterior_score_nn
+    from sbi_tpu_torch.samplers.score import Diffuser
+
+    gen = torch.Generator(device=device).manual_seed(seed + 340)
+    theta = torch.randn((512, DIFFUSER_THETA_DIM), generator=gen, device=device)
+    x = torch.randn((512, DIFFUSER_X_DIM), generator=gen, device=device)
+    est = posterior_score_nn(sde_type="vp", device=device,
+                             generator=torch.Generator().manual_seed(seed + 340))(theta, x)
+    diffuser, x_o = Diffuser(est), x[:1]
+
+    def run():
+        return diffuser.run(DIFFUSER_SAMPLES, x_o, steps=DIFFUSER_STEPS, generator=gen)
+
+    run()  # warm-up
+    samples, t = sync_time(torch, run)
+    check(samples.shape == (DIFFUSER_SAMPLES, 1, DIFFUSER_THETA_DIM)
+          and bool(torch.isfinite(samples).all()), "diffuser_sampling: non-finite samples")
+    profile = device_breakdown(torch, run)
+    strict = {}
+    for corrector in (None, "langevin"):
+        d = Diffuser(est, corrector=corrector)
+        torch.cuda.synchronize() if device.type == "cuda" else None
+        with no_host_sync(torch, device):
+            out = d.run(DIFFUSER_SAMPLES, x_o, steps=STRICT_DIFFUSER_STEPS + 1, generator=gen)
+        check(bool(torch.isfinite(out).all()), f"diffuser_sampling: non-finite strict run {corrector}")
+        strict[str(corrector)] = STRICT_DIFFUSER_STEPS
+    emit("diffuser_sampling", sde_type="vp", theta_dim=DIFFUSER_THETA_DIM, x_dim=DIFFUSER_X_DIM,
+         steps=DIFFUSER_STEPS, num_samples=DIFFUSER_SAMPLES, run_s=t,
+         samples_per_sec=DIFFUSER_SAMPLES / t, host_us_per_step=t / DIFFUSER_STEPS * 1e6,
+         device_ops_per_step=profile["device_ops"] / DIFFUSER_STEPS, profiled_run=profile,
+         strict_steps_by_corrector=strict)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2054,9 +2315,9 @@ def main(argv=None) -> int:
     # bit-for-bit checks and times (before the main paths, as above).
     merge = ensemble_merge(torch, rqs, device, args.seed)
 
-    # 5-16. The main paths, serving, training, NLE and MCMC, ensembles: each
-    # path's counts are zeroed just before it and read just after, and each
-    # of its kernels must have launched.
+    # 5-16. The main paths, serving, training, NLE and MCMC, ensembles, the
+    # MDN family and vector fields: each path's counts are zeroed just before
+    # it and read just after, and each of its kernels must have launched.
     from sbi_tpu_torch.samplers.mcmc import slice_fsm
 
     trained = {}  # the two_moons NPE trainer and nle_slcp's figures, used by later paths
@@ -2083,6 +2344,11 @@ def main(argv=None) -> int:
             mdn_ensemble(torch, device, args.seed, mdn_linear_gaussian_10d(torch, device, args.seed)),
             snpe_c_mog_two_rounds(torch, device, args.seed),
             snpe_a_two_rounds(torch, device, args.seed))),
+        # Neither do vector fields.
+        ("vector_fields", (), lambda: (
+            vf_linear_gaussian(torch, device, args.seed),
+            fmpe_cnn_highdim(torch, device, args.seed),
+            diffuser_sampling(torch, device, args.seed))),
     )
     by_path = {}
     for path, kernels_of_path, drive in paths:

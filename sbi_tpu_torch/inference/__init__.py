@@ -5,17 +5,25 @@ Ported so far: ``NeuralInference``, ``PosteriorEstimatorTrainer``, NPE-C
 (``NPE``, ``NPE_C``, ``SNPE``, ``SNPE_C``, ``APT``), NPE-A (``NPE_A``,
 ``SNPE_A``) with ``NPE_A_Posterior``, NPE-B (``NPE_B``, ``SNPE_B``),
 ``LikelihoodEstimatorTrainer`` and NLE-A (``NLE``, ``NLE_A``, ``SNLE``,
-``SNLE_A``, ``SNL``), ensembles (``train_ensemble``,
-``build_ensemble_posterior``), ``infer``, ``simulate_for_sbi``,
-``DirectPosterior``, ``MCMCPosterior`` (vectorized slice sampling),
-``EnsemblePosterior``, the typed ``*PosteriorParameters`` and the
-posterior and likelihood potentials. The other names of
+``SNLE_A``, ``SNL``), the vector-field trainers (``FMPE``, ``NPSE``,
+``VectorFieldTrainer``) with ``VectorFieldPosterior``, ensembles
+(``train_ensemble``, ``build_ensemble_posterior``), ``infer``,
+``simulate_for_sbi``, ``DirectPosterior``, ``MCMCPosterior`` (vectorized
+slice sampling), ``EnsemblePosterior``, the typed
+``*PosteriorParameters`` and the posterior, likelihood and vector-field
+potentials. The other names of
 ``sbi_tpu.inference`` come with later slices and raise
 ``NotImplementedError`` when asked for.
 """
 
 from ..utils.simulation_utils import simulate_for_sbi
-from .posteriors import DirectPosterior, EnsemblePosterior, MCMCPosterior, NeuralPosterior
+from .posteriors import (
+    DirectPosterior,
+    EnsemblePosterior,
+    MCMCPosterior,
+    NeuralPosterior,
+    VectorFieldPosterior,
+)
 from .posteriors.npe_a_posterior import NPE_A_Posterior
 from .posteriors.posterior_parameters import (
     DirectPosteriorParameters,
@@ -31,26 +39,33 @@ from .potentials.likelihood_based_potential import (
     likelihood_estimator_based_potential,
 )
 from .potentials.posterior_based_potential import posterior_estimator_based_potential
+from .potentials.vector_field_potential import (
+    VectorFieldBasedPotential,
+    vector_field_estimator_based_potential,
+)
 from .trainers.base import NeuralInference, check_if_proposal_has_default_x, infer
 from .trainers.nle.nle_a import NLE, NLE_A, SNL, SNLE, SNLE_A, LikelihoodEstimatorTrainer
 from .trainers.npe.npe_a import NPE_A, SNPE_A
 from .trainers.npe.npe_b import NPE_B, SNPE_B
 from .trainers.npe.npe_base import PosteriorEstimatorTrainer
 from .trainers.npe.npe_c import APT, NPE, NPE_C, SNPE, SNPE_C
+from .trainers.vfpe.base_vf_inference import VectorFieldTrainer
+from .trainers.vfpe.fmpe import FMPE
+from .trainers.vfpe.npse import NPSE
 
 METHOD_REGISTRY = {
     "NPE": NPE, "NPE_C": NPE_C, "SNPE": SNPE, "SNPE_C": SNPE_C, "APT": APT,
     "NPE_A": NPE_A, "SNPE_A": SNPE_A, "NPE_B": NPE_B, "SNPE_B": SNPE_B,
     "NLE": NLE, "NLE_A": NLE_A, "SNLE": SNLE, "SNLE_A": SNLE_A, "SNL": SNL,
+    "FMPE": FMPE, "NPSE": NPSE,
 }
 
 _LATER_SLICE_NAMES = frozenset((
     "MNLE",
     "NRE_A", "SNRE_A", "AALR", "NRE_B", "SNRE_B", "SNRE", "SRE", "NRE", "NRE_C", "SNRE_C",
-    "CNRE", "BNRE", "MNPE", "NPE_PFN", "FMPE", "NPSE",
-    "VectorFieldTrainer", "MarginalTrainer", "MCABC", "ABC", "SMCABC", "SMC",
+    "CNRE", "BNRE", "MNPE", "NPE_PFN",
+    "MarginalTrainer", "MCABC", "ABC", "SMCABC", "SMC",
     "RejectionPosterior", "ImportanceSamplingPosterior", "VIPosterior",
-    "VectorFieldPosterior", "vector_field_estimator_based_potential",
     "mixed_likelihood_estimator_based_potential", "RatioBasedPotential",
     "ratio_estimator_based_potential",
 ))
@@ -70,14 +85,15 @@ def __getattr__(name):
 
 
 __all__ = [
-    "APT", "DirectPosterior", "DirectPosteriorParameters", "EnsemblePosterior",
+    "APT", "DirectPosterior", "DirectPosteriorParameters", "EnsemblePosterior", "FMPE",
     "FilteredDirectPosteriorParameters", "ImportanceSamplingPosteriorParameters",
     "LikelihoodBasedPotential", "LikelihoodEstimatorTrainer", "MCMCPosterior",
     "MCMCPosteriorParameters", "METHOD_REGISTRY", "NLE", "NLE_A", "NPE", "NPE_A",
-    "NPE_A_Posterior", "NPE_B", "NPE_C", "NeuralInference", "NeuralPosterior",
+    "NPE_A_Posterior", "NPE_B", "NPE_C", "NPSE", "NeuralInference", "NeuralPosterior",
     "PosteriorEstimatorTrainer", "RejectionPosteriorParameters", "SNL", "SNLE", "SNLE_A",
     "SNPE", "SNPE_A", "SNPE_B", "SNPE_C", "VIPosteriorParameters",
-    "VectorFieldPosteriorParameters",
-    "check_if_proposal_has_default_x", "infer", "likelihood_estimator_based_potential",
+    "VectorFieldBasedPotential", "VectorFieldPosterior", "VectorFieldPosteriorParameters",
+    "VectorFieldTrainer", "check_if_proposal_has_default_x", "infer", "likelihood_estimator_based_potential",
     "posterior_estimator_based_potential", "simulate_for_sbi",
+    "vector_field_estimator_based_potential",
 ]

@@ -153,7 +153,9 @@ def build_posterior_from_parameters(parameters, estimator, prior, kind: str = "n
                 f"{type(parameters).__name__} requires a vector-field "
                 f"estimator (FMPE/NPSE trainers); got a '{kind}' trainer."
             )
-        raise NotImplementedError(f"VectorFieldPosterior {_LATER_SLICE}.")
+        from .vector_field_posterior import VectorFieldPosterior
+
+        return VectorFieldPosterior(estimator, prior, **kwargs)
     if isinstance(parameters, MCMCPosteriorParameters):
         if kind == "nle":
             from ..potentials.likelihood_based_potential import (

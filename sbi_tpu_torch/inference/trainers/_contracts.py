@@ -30,8 +30,10 @@ class TrainConfig:
     port runs eagerly and keeps the best parameters of every epoch, exactly,
     whatever this value."""
     ema_params_decay: Optional[float] = None
-    """An EMA of the parameters, used by the vector-field trainers; comes
-    with a later slice (the trainer raises if it is set)."""
+    """None = no parameter EMA. Otherwise the decay of an exponential moving
+    average of the parameters, updated after every optimizer step, which
+    validation scores and the best-epoch snapshot keeps (the vector-field
+    trainers' default is 0.999)."""
     lr_schedule: Optional[str] = None
     """None = constant Adam learning rate. "cosine" = linear warmup then
     cosine decay to ``learning_rate * lr_final_factor`` over

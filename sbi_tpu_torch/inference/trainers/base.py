@@ -17,7 +17,15 @@ The port keeps what matters of that on the card:
   validation loss (one ``no_grad`` pass over the whole validation set)
   reach the host; the finite check runs there;
 - best-parameter snapshots are device-side ``state_dict`` clones, taken
-  when the validation loss improves and restored at the end.
+  when the validation loss improves and restored at the end;
+- with ``ema_params_decay`` (the vector-field trainers' default), an
+  exponential moving average of the parameters, ema <- decay ema + (1 -
+  decay) params after every optimizer step, is what validation scores,
+  what the snapshots keep and what the estimator ends with.
+
+Two hooks let a trainer change the stopping rule, as the JAX loop's do:
+``_postprocess_epoch_losses`` (the losses recorded and tested) and
+``_converged_chunk`` (the decision on an epoch's validation loss).
 
 ``train``'s ``epoch_chunk`` is accepted for parity: the port checks
 convergence and keeps the best parameters every epoch, which is what the
@@ -116,6 +124,14 @@ def clip_by_global_norm_(grads, max_norm: float) -> None:
 
 
 @torch.no_grad()
+def ema_update_(ema, params, decay: float) -> None:
+    """ema <- decay * ema + (1 - decay) * params, in place, on the device
+    (the JAX package's ``params_ema_transform``)."""
+    torch._foreach_mul_(ema, decay)
+    torch._foreach_add_(ema, params, alpha=1.0 - decay)
+
+
+@torch.no_grad()
 def clip_by_global_norm_per_member_(grads, max_norm: float) -> None:
     """``clip_by_global_norm_`` for each member of stacked gradients (a
     leading member axis on every tensor): member k's gradients are scaled
@@ -193,6 +209,8 @@ class NeuralInference(ABC):
         self._neural_net = None
         self._optimizer: Optional[torch.optim.Optimizer] = None
         self._opt_steps = 0
+        self._ema_params: Optional[list] = None  # the parameters' EMA, when training keeps one
+        self._ema_decay: Optional[float] = None
         self._epoch = 0
         self._round = 0
         self._val_loss = float("inf")
@@ -280,28 +298,60 @@ class NeuralInference(ABC):
         """
         if cfg.mesh is not None:
             raise NotImplementedError(f"Training over a device mesh (mesh=) {_LATER_SLICE}.")
-        if cfg.ema_params_decay is not None:
-            raise NotImplementedError(f"ema_params_decay {_LATER_SLICE}.")
         gen = next_generator(generator, self._device)
         theta, x, masks, train_idx, val_idx = self.get_dataloaders(
             start_idx, cfg.training_batch_size, cfg.validation_fraction,
             cfg.resume_training, generator=gen,
         )
         net = self._neural_net.net
-        params = [p for p in net.parameters() if p.requires_grad]
+        named = [(k, p) for k, p in net.named_parameters() if p.requires_grad]
+        params = [p for _, p in named]
         num_train = train_idx.shape[0]
         batch_size = min(cfg.training_batch_size, num_train)
         n_batches = max(1, num_train // batch_size)
-        if not (cfg.resume_training and self._optimizer is not None):
+        use_ema = cfg.ema_params_decay is not None
+        resume = cfg.resume_training and self._optimizer is not None
+        if resume and use_ema != (self._ema_params is not None):
+            warnings.warn(
+                "resume_training=True but the optimizer structure changed since the "
+                "previous train() call (e.g. lr_schedule or ema_params_decay toggled) — "
+                "reinitializing the optimizer state; the schedule restarts from step 0."
+            )
+            self._optimizer = self._make_optimizer(cfg, params)
+            self._opt_steps = 0
+            self._ema_params = None
+        elif not resume:
             self._optimizer = self._make_optimizer(cfg, params)
             self._opt_steps = 0
             self._epoch = 0
+            self._ema_params = None
+        self._ema_decay = cfg.ema_params_decay
+        if use_ema and self._ema_params is None:
+            self._ema_params = [p.detach().clone() for p in params]
         schedule = self._make_schedule(cfg, n_batches)
+
+        if use_ema:
+            # Validation scores the EMA parameters, and a snapshot keeps them.
+            names = [k for k, _ in named]
+            ema_val = functional(net, val_loss_fn or loss_fn)
+
+            def validate(*batch):
+                return ema_val(dict(zip(names, self._ema_params)), *batch)
+
+            def snapshot():
+                state = _state_clone(net)
+                state.update((k, e.clone()) for k, e in zip(names, self._ema_params))
+                return state
+        else:
+            validate = val_loss_fn or loss_fn
+
+            def snapshot():
+                return _state_clone(net)
 
         # Reset convergence tracking for this train() call.
         self._best_val_loss = float("inf")
         self._epochs_since_last_improvement = 0
-        self._best_params = _state_clone(net)
+        self._best_params = snapshot()
 
         epoch_start = self._epoch
         stop = False
@@ -317,10 +367,11 @@ class NeuralInference(ABC):
                     cfg.clip_max_norm, schedule,
                 )
             with torch.no_grad():
-                val = (val_loss_fn or loss_fn)(theta[val_idx], x[val_idx], masks[val_idx], gen).mean()
+                val = validate(theta[val_idx], x[val_idx], masks[val_idx], gen).mean()
             # The epoch's one host sync.
             train_loss, val_loss = torch.stack([loss_sum / n_batches, val]).tolist()
             dt = time.time() - t0
+            (train_loss,), (val_loss,) = self._postprocess_epoch_losses([train_loss], [val_loss])
             if not (math.isfinite(train_loss) and math.isfinite(val_loss)):
                 raise AssertionError(
                     "NaN/Inf present in training or validation loss "
@@ -334,7 +385,7 @@ class NeuralInference(ABC):
             self._summary["epoch_durations_sec"].append(dt)
             self._tracker.log_metric("train_loss", train_loss, self._epoch)
             self._tracker.log_metric("validation_loss", val_loss, self._epoch)
-            if self._converged(val_loss, lambda: _state_clone(net), cfg.stop_after_epochs):
+            if self._converged_chunk([val_loss], snapshot, cfg.stop_after_epochs):
                 stop = True
             if self._epoch - epoch_start >= cfg.max_num_epochs:
                 warnings.warn(
@@ -372,6 +423,8 @@ class NeuralInference(ABC):
         if clip_max_norm is not None:
             clip_by_global_norm_([p.grad for p in params if p.grad is not None], clip_max_norm)
         opt.step()
+        if self._ema_params is not None:
+            ema_update_(self._ema_params, params, self._ema_decay)
         self._opt_steps += 1
         return loss.detach()
 
@@ -388,6 +441,20 @@ class NeuralInference(ABC):
         init = 0.0 if warmup > 0 else cfg.learning_rate
         end = cfg.learning_rate * cfg.lr_final_factor
         return lambda step: warmup_cosine_decay(step, init, cfg.learning_rate, warmup, total, end)
+
+    def _postprocess_epoch_losses(self, train_losses, val_losses):
+        """The losses to record and to test for convergence, from the raw
+        per-epoch losses (the identity; the vector-field trainers smooth
+        them)."""
+        return train_losses, val_losses
+
+    def _converged_chunk(self, val_losses, snapshot: Callable[[], Any],
+                         stop_after_epochs: int) -> bool:
+        """The convergence decision on a run of per-epoch validation losses
+        (the training loop gives one epoch at a time): ``_converged`` on the
+        best of them."""
+        return self._converged(min(val_losses), snapshot, stop_after_epochs,
+                               n_epochs=len(val_losses))
 
     def _converged(self, val_loss: float, snapshot: Callable[[], Any], stop_after_epochs: int,
                    n_epochs: int = 1) -> bool:
@@ -420,6 +487,13 @@ class NeuralInference(ABC):
     def _ensemble_val_loss_fn(self, est) -> Callable:
         """The loss of the per-member best-validation snapshots."""
         return self._ensemble_loss_fn(est)
+
+    def _ensemble_extra_inputs(self, theta_b, generator, validation: bool) -> tuple:
+        """Inputs the ensemble's losses take after (theta_b, x_b, masks_b),
+        drawn outside the vmapped step from ``theta_b`` (K, B, ...) and
+        ``generator``: for the training loss, or with ``validation`` for the
+        validation loss. None by default."""
+        return ()
 
     def train_ensemble(
         self,
@@ -540,13 +614,15 @@ class NeuralInference(ABC):
             for b in range(n_batches):
                 idx = batches[:, b]
                 lr = schedule(steps) if schedule is not None else None
+                batch = (theta[idx], x[idx], masks[idx])
+                batch += self._ensemble_extra_inputs(batch[0], gen, False)
                 loss_sum = loss_sum + ensemble_step(
-                    grad_and_loss, params, optimizer, (theta[idx], x[idx], masks[idx]),
-                    clip_max_norm, lr)
+                    grad_and_loss, params, optimizer, batch, clip_max_norm, lr)
                 steps += 1
             with torch.no_grad():
-                val = member_val(params, theta[member_val_idx], x[member_val_idx],
-                                 masks[member_val_idx])
+                val_batch = (theta[member_val_idx], x[member_val_idx], masks[member_val_idx])
+                val = member_val(params, *val_batch,
+                                 *self._ensemble_extra_inputs(val_batch[0], gen, True))
                 improved = val < best_val
                 best_val = torch.where(improved, val, best_val)
                 for k, v in params.items():

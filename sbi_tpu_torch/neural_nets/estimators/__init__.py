@@ -1,4 +1,4 @@
-from .base import ConditionalDensityEstimator, ConditionalEstimator
+from .base import ConditionalDensityEstimator, ConditionalEstimator, ConditionalVectorFieldEstimator
 from .flows import (
     FlowEstimator,
     FlowModule,
@@ -11,12 +11,22 @@ from .flows import (
     RQSCoupling,
     rational_quadratic_spline,
 )
+from .flowmatching_estimator import FlowMatchingEstimator
 from .mdn import MDNModule, MixtureDensityEstimator, MoG, MultivariateGaussianMDN
+from .score_estimator import (
+    ConditionalScoreEstimator,
+    SubVPScoreEstimator,
+    VEScoreEstimator,
+    VPScoreEstimator,
+)
 
 __all__ = [
     "ConditionalDensityEstimator",
     "ConditionalEstimator",
+    "ConditionalScoreEstimator",
+    "ConditionalVectorFieldEstimator",
     "FlowEstimator",
+    "FlowMatchingEstimator",
     "FlowModule",
     "LULinear",
     "MDNModule",
@@ -29,5 +39,8 @@ __all__ = [
     "MultivariateGaussianMDN",
     "Permutation",
     "RQSCoupling",
+    "SubVPScoreEstimator",
+    "VEScoreEstimator",
+    "VPScoreEstimator",
     "rational_quadratic_spline",
 ]

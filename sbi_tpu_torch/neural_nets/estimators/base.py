@@ -167,3 +167,76 @@ class ConditionalDensityEstimator(ConditionalEstimator):
             condition,
         )
         return samples, lp.reshape(tuple(sample_shape) + (-1,))
+
+
+def as_times(time, n: int, device) -> torch.Tensor:
+    """``time`` (a number, a 0-d tensor or a (n,) tensor) as a float32
+    (n,) tensor on ``device``; a number needs no host sync."""
+    if isinstance(time, torch.Tensor):
+        return time.to(device=device, dtype=torch.float32).expand(n)
+    return torch.full((n,), float(time), device=device)
+
+
+class ConditionalVectorFieldEstimator(ConditionalEstimator):
+    """Base of the score and flow-matching estimators.
+
+    Subclasses give the net's output (``forward``), the SDE geometry
+    (``mean_t_fn``, ``std_fn``, ``drift_fn``, ``diffusion_fn``), the score
+    and the probability-flow velocity. The net is ``net(z, condition, t)``;
+    it also offers ``net.embed(condition)`` and ``net.field(z, embedded,
+    t)``, and the z-space methods take ``embedded=True`` with a condition
+    already embedded, so that samplers embed x once and not at every step.
+    """
+
+    SCORE_DEFINED: bool = True
+    SDE_DEFINED: bool = True
+    MARGINALS_DEFINED: bool = True
+
+    t_min: float = 0.0
+    t_max: float = 1.0
+
+    def _net(self, z, condition, time, embedded: bool = False) -> torch.Tensor:
+        t = as_times(time, z.shape[0], z.device)
+        if embedded:
+            return self.net.field(z, condition, t)
+        return self.net(z, condition, t)
+
+    def embed_condition(self, condition: torch.Tensor) -> torch.Tensor:
+        """The z-scored condition through the net's embedding, flattened."""
+        return self.net.embed(condition)
+
+    def forward(self, input, condition, time) -> torch.Tensor:
+        raise NotImplementedError
+
+    def __call__(self, input, condition, time):
+        return self.forward(input, condition, time)
+
+    # --- SDE geometry --------------------------------------------------------
+    def mean_t_fn(self, times: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def std_fn(self, times: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def drift_fn(self, input: torch.Tensor, times: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def diffusion_fn(self, input: torch.Tensor, times: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def score(self, input, condition, time) -> torch.Tensor:
+        raise NotImplementedError
+
+    def ode_fn(self, input, condition, time) -> torch.Tensor:
+        """Probability-flow ODE velocity d input / d t."""
+        raise NotImplementedError
+
+    def std_at(self, time: float) -> float:
+        """``std_fn`` at one time, as a Python float (computed in float32
+        on the CPU: no host sync)."""
+        return float(self.std_fn(torch.tensor([float(time)]))[0])
+
+    def solve_schedule(self, num_steps: int) -> torch.Tensor:
+        """Time grid from t_max down to t_min, a float32 CPU tensor (the
+        samplers read it on the host)."""
+        return torch.linspace(self.t_max, self.t_min, num_steps)

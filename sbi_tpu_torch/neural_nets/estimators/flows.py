@@ -74,15 +74,17 @@ def _dense(in_features: int, out_features: int, zero_init: bool = False) -> nn.L
 
 
 def init_flax_like_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Initialise every linear layer as flax's ``Dense`` does: lecun-normal
-    kernel (or zeros where ``zero_init``), zero bias."""
+    """Initialise every linear and convolution layer as flax's ``Dense``
+    and ``Conv`` do: lecun-normal kernel over the fan-in (or zeros where
+    ``zero_init``), zero bias."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, nn.Linear):
+            if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 if getattr(m, "zero_init", False):
                     m.weight.zero_()
                 else:
-                    std = math.sqrt(1.0 / m.in_features) / _TRUNC_NORMAL_STD
+                    fan_in = m.weight[0].numel()
+                    std = math.sqrt(1.0 / fan_in) / _TRUNC_NORMAL_STD
                     nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
                                           generator=generator)
                 m.bias.zero_()

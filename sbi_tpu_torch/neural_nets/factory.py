@@ -2,7 +2,8 @@
 closures so nets are shaped and z-scored from the first data batch
 (PyTorch counterpart of ``sbi_tpu/neural_nets/factory.py``). The port
 has ``model="nsf"``, ``"maf"`` and ``"mdn"``, for posteriors and for
-likelihoods; the other models come with later slices.
+likelihoods, and the vector-field builders ``posterior_score_nn`` and
+``posterior_flow_nn``; the other models come with later slices.
 """
 
 from __future__ import annotations
@@ -83,5 +84,51 @@ def likelihood_nn(
 
     def build_fn(batch_theta, batch_x):
         return inner(batch_x, batch_theta)
+
+    return build_fn
+
+
+def posterior_score_nn(
+    model: str = "mlp",
+    sde_type: str = "ve",
+    z_score_theta: Optional[str] = "independent",
+    z_score_x: Optional[str] = "independent",
+    hidden_features: int = 100,
+    embedding_net=None,
+    **kwargs,
+) -> Callable:
+    """Score-estimator builder for NPSE. ``device`` and ``generator`` pass
+    through ``kwargs`` to the builder."""
+
+    def build_fn(batch_theta, batch_x):
+        from .net_builders.vector_field_nets import build_score_estimator
+
+        return build_score_estimator(
+            batch_theta, batch_x, sde_type=sde_type, net=model, z_score_theta=z_score_theta,
+            z_score_x=z_score_x, hidden_features=hidden_features, embedding_net=embedding_net,
+            **kwargs,
+        )
+
+    return build_fn
+
+
+def posterior_flow_nn(
+    model: str = "mlp",
+    z_score_theta: Optional[str] = "independent",
+    z_score_x: Optional[str] = "independent",
+    hidden_features: int = 100,
+    embedding_net=None,
+    **kwargs,
+) -> Callable:
+    """Flow-matching builder for FMPE. ``device`` and ``generator`` pass
+    through ``kwargs`` to the builder."""
+
+    def build_fn(batch_theta, batch_x):
+        from .net_builders.vector_field_nets import build_flow_matching_estimator
+
+        return build_flow_matching_estimator(
+            batch_theta, batch_x, net=model, z_score_theta=z_score_theta, z_score_x=z_score_x,
+            hidden_features=hidden_features, embedding_net=embedding_net, **kwargs,
+        )
 
     return build_fn

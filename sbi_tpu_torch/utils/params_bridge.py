@@ -1,4 +1,5 @@
-"""Load ``sbi_tpu`` flow and MDN parameters into this package's estimator.
+"""Load ``sbi_tpu`` flow, MDN, vector-field and embedding parameters into
+this package's estimators and modules.
 
 The JAX package's parameters arrive as a nested dict of numpy arrays (for
 example ``jax.tree_util.tree_map(np.asarray, est.params)``); this module
@@ -13,11 +14,22 @@ imports no JAX. Layer names follow flax:
   - ``Dense_{j}`` of an ``MDNModule``: the hidden layers ``Dense_0`` to
     ``Dense_{L-1}``, then the logits ``Dense_L``, means ``Dense_{L+1}``,
     diagonal ``Dense_{L+2}`` and off-diagonal ``Dense_{L+3}`` heads
-    (``L = num_layers``; no off-diagonal head at D = 1).
+    (``L = num_layers``; no off-diagonal head at D = 1);
+  - ``VectorFieldMLP``: ``Dense_0`` the input layer, ``Dense_1`` to
+    ``Dense_{L-1}`` the residual layers, ``Dense_L`` the output;
+  - ``VectorFieldAdaMLP``: ``Dense_0`` the (condition, time) layer,
+    ``Dense_1`` the input layer, ``Dense_2`` the output, ``LayerNorm_0``
+    the final norm, and ``AdaLNBlock_i/{Dense_0, Dense_1, Dense_2}`` each
+    block's modulation and two layers;
+  - an embedding net nested as ``embedding_net`` inside the net that holds
+    it: ``FCEmbedding``'s ``Dense_j``, ``CNNEmbedding``'s ``Conv_j`` then
+    ``Dense_j``.
 
 flax ``Dense`` kernels are (in, out) and torch ``Linear`` weights (out, in),
 so kernels are transposed; the ``MaskedDense`` masks are built from the same
-degrees and stored transposed by the module itself.
+degrees and stored transposed by the module itself. flax ``Conv`` kernels are
+channels last, (k, in, out) or (kh, kw, in, out), and torch's (out, in, k)
+or (out, in, kh, kw).
 
 ``load_stacked_flax_params`` loads an ensemble's stacked parameters (each
 leaf with a leading member axis, as ``train_ensemble`` holds them in
@@ -32,8 +44,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..neural_nets.embedding_nets import CNNEmbedding, FCEmbedding, IdentityEmbedding
 from ..neural_nets.estimators.base import ConditionalEstimator, stack_nets
 from ..neural_nets.estimators.mdn import MDNModule
+from ..neural_nets.net_builders.vector_field_nets import VectorFieldAdaMLP, VectorFieldMLP
 from ..neural_nets.estimators.flows import (
     LULinear,
     MADENet,
@@ -56,6 +70,50 @@ def _load_dense(layer: nn.Linear, p: Mapping, name: str) -> int:
     _copy(layer.weight, np.asarray(p["kernel"]).T, f"{name}/kernel")
     _copy(layer.bias, p["bias"], f"{name}/bias")
     return 2
+
+
+def _load_conv(conv: nn.Module, p: Mapping, name: str) -> int:
+    kernel = np.asarray(p["kernel"])
+    _copy(conv.weight, np.moveaxis(kernel, (-1, -2), (0, 1)), f"{name}/kernel")
+    _copy(conv.bias, p["bias"], f"{name}/bias")
+    return 2
+
+
+def load_flax_embedding(module: nn.Module, p: Mapping, name: str = "embedding_net") -> int:
+    """Copy an embedding net's flax parameters into ``module`` (built with
+    the same configuration); returns the number of leaves used."""
+    if isinstance(module, IdentityEmbedding):
+        return 0
+    with torch.no_grad():
+        if isinstance(module, FCEmbedding):
+            return sum(_load_dense(layer, p[f"Dense_{j}"], f"{name}/Dense_{j}")
+                       for j, layer in enumerate(module.layers))
+        if isinstance(module, CNNEmbedding):
+            n = sum(_load_conv(conv, p[f"Conv_{j}"], f"{name}/Conv_{j}")
+                    for j, conv in enumerate(module.convs))
+            denses = list(module.linears) + [module.out]
+            return n + sum(_load_dense(layer, p[f"Dense_{j}"], f"{name}/Dense_{j}")
+                           for j, layer in enumerate(denses))
+    raise TypeError(f"{name}: no bridge for {type(module).__name__}")
+
+
+def _load_vector_field(net: nn.Module, tree: Mapping) -> int:
+    if isinstance(net, VectorFieldMLP):
+        denses = [net.inp] + list(net.res) + [net.out]
+        n = sum(_load_dense(d, tree[f"Dense_{j}"], f"Dense_{j}") for j, d in enumerate(denses))
+    else:
+        n = sum(_load_dense(d, tree[f"Dense_{j}"], f"Dense_{j}")
+                for j, d in enumerate((net.cond, net.inp, net.out)))
+        for i, block in enumerate(net.blocks):
+            name = f"AdaLNBlock_{i}"
+            n += sum(_load_dense(d, tree[name][f"Dense_{j}"], f"{name}/Dense_{j}")
+                     for j, d in enumerate((block.mod, block.fc1, block.fc2)))
+        _copy(net.norm.weight, tree["LayerNorm_0"]["scale"], "LayerNorm_0/scale")
+        _copy(net.norm.bias, tree["LayerNorm_0"]["bias"], "LayerNorm_0/bias")
+        n += 2
+    if net.embedding_net is not None:
+        n += load_flax_embedding(net.embedding_net, tree["embedding_net"])
+    return n
 
 
 def _load_made(made: MADENet, p: Mapping, name: str) -> int:
@@ -86,6 +144,8 @@ def load_flax_params(
     with torch.no_grad():
         if isinstance(estimator.net, MDNModule):
             used = _load_mdn(estimator.net, tree)
+        if isinstance(estimator.net, (VectorFieldMLP, VectorFieldAdaMLP)):
+            used = _load_vector_field(estimator.net, tree)
         for i, layer in enumerate(getattr(estimator.net, "layers", ())):
             name = f"layers_{i}"
             if isinstance(layer, Permutation):

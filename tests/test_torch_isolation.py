@@ -217,6 +217,54 @@ def test_mdn_family_defaults_to_cuda():
         assert posterior.sample((5,), x=np.zeros(2, np.float32)).shape == (5, 2)
 
 
+def test_vector_field_modules_leave_jax_out():
+    code = (
+        "import sys\n"
+        "import sbi_tpu_torch.neural_nets.embedding_nets, "
+        "sbi_tpu_torch.neural_nets.estimators.score_estimator, "
+        "sbi_tpu_torch.neural_nets.estimators.flowmatching_estimator, "
+        "sbi_tpu_torch.neural_nets.net_builders.vector_field_nets, "
+        "sbi_tpu_torch.inference.trainers.vfpe.fmpe, sbi_tpu_torch.inference.trainers.vfpe.npse, "
+        "sbi_tpu_torch.samplers.ode, sbi_tpu_torch.samplers.score, "
+        "sbi_tpu_torch.inference.potentials.vector_field_potential, "
+        "sbi_tpu_torch.inference.posteriors.vector_field_posterior\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'sbi_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+
+
+def test_vector_fields_default_to_cuda():
+    """FMPE, NPSE and the vector-field builders raise without CUDA; with
+    device="cpu" they train, and their posteriors sample, on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+    from sbi_tpu_torch.inference import FMPE, NPSE, VectorFieldPosterior, infer
+    from sbi_tpu_torch.neural_nets import posterior_flow_nn, posterior_score_nn
+    from sbi_tpu_torch.simulators import two_moons_simulator
+    from sbi_tpu_torch.utils import BoxUniform
+
+    prior = BoxUniform(-np.ones(2), np.ones(2), device="cpu")
+    theta = prior.sample((60,))
+    x = theta + 0.1
+    for builder in (posterior_flow_nn(), posterior_score_nn()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            builder(theta, x)
+    for cls in (FMPE, NPSE):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(prior=prior)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        infer(two_moons_simulator, prior, "NPSE", 50)
+    for trainer in (FMPE(prior=prior, device="cpu"), NPSE(prior=prior, sde_type="vp", device="cpu")):
+        trainer.append_simulations(theta, x).train(max_num_epochs=1)
+        assert trainer._neural_net.device == torch.device("cpu")
+        posterior = trainer.build_posterior()
+        assert isinstance(posterior, VectorFieldPosterior)
+        assert posterior.sample((5,), x=np.zeros(2, np.float32), steps=10).shape == (5, 2)
+
+
 def test_prior_on_another_device_than_the_trainer_raises():
     from sbi_tpu_torch.inference import NPE
     from sbi_tpu_torch.utils import BoxUniform
