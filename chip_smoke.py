@@ -59,7 +59,19 @@ public entry points:
   ``log_prob`` rates, a training step, diffusion steps and RK4 steps with
   every host sync refused), and bench.py's ``diffuser_sampling`` (500
   reverse-SDE steps for 1,024 samples: samples/s, host us a step, device
-  operations a step, the busy share).
+  operations a step, the busy share);
+- the NRE family, which reaches no kernel and must launch none: two_moons
+  NRE_B at the round-2 recipe (30,000 simulations, a ResNet classifier,
+  10 atoms; train steps/s and the busy share of an epoch), observations
+  0-2 by ``MCMCPosterior.sample_batched`` scored by C2ST beside a control
+  that must fail the gate, ``nre_slice_samples_per_sec`` (1,000 chains
+  through the classifier: host us and device operations an FSM
+  iteration), ``sample_with="rejection"`` and ``"importance"`` on the same
+  ratio (C2ST, acceptance rate, ESS, PSIS k-hat; the rejection ascent with
+  every host sync refused); NRE_A, NRE_C and BNRE on the 2-D linear
+  Gaussian (the JAX package's slow tests); two rounds of SNRE_B; an NRE_B
+  ensemble whose potential must take the stacked (one-vmap) route, with
+  one ensemble step with every host sync refused.
 
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero. The kernel launch counters are zeroed just before the main path
@@ -253,6 +265,62 @@ CNN_SIMS, CNN_L, CNN_BATCH, CNN_PATIENCE, CNN_MAX_EPOCHS, CNN_C2ST_MAX = 4_000, 
 CNN_HIDDEN, CNN_RATE_DRAWS, VF_CONTROL_SHIFT_SD = 128, 1_000, 1.0
 DIFFUSER_THETA_DIM, DIFFUSER_X_DIM, DIFFUSER_STEPS, DIFFUSER_SAMPLES = 5, 8, 500, 1_024
 STRICT_DIFFUSER_STEPS, STRICT_RK4_STEPS = 5, 3
+# NRE. two_moons NRE_B at scripts/bm_round2.py:377-380's recipe: 30,000
+# simulations, the default classifier (ResNet, hidden 50, 2 blocks), 10
+# atoms, batch 200. The recipe's patience of 150 epochs is cut to the
+# trainer's default of 20, and training to at most NRE_MAX_EPOCHS.
+# Observations 0-2 of two_moons.npz in one MCMCPosterior.sample_batched run
+# (200 chains, warmup 300, thin 3), NRE_DRAWS draws each against as many
+# reference draws by c2st_torch, gated on the mean (NRE_C2ST_MEAN_MAX) and
+# on each (NRE_C2ST_EACH_MAX). The target mean of 0.60
+# (NRE_C2ST_MEAN_TARGET, printed beside it) lies inside both packages'
+# spread: on the same numpy inputs, trained to the same patience and scored
+# by the same exact draws and c2st_torch, the JAX package's means read
+# 0.538-0.581 over five initialisations (up to 0.6175 at one
+# observation), the port's 0.567-0.590 over eight
+# (scripts/nre_two_moons_jax_vs_torch.py), and this phase reads 0.602 at
+# --seed 0 (the same in two runs on an H100).
+# The mean gate sits above the JAX package's worst mean plus the 0.03 that
+# the slice sampler's draws read above or below exact ones, and below the
+# control's 0.78. The chains
+# start from NRE_INIT_CANDIDATES prior draws resampled per observation, as
+# MCMCPosterior.sample's do: from sample_batched's default of 1,024, which
+# the JAX package shares, the posterior (~0.3% of the prior box) holds a
+# handful of candidates and the means read 0.593-0.631 over three
+# trainings, against 0.562-0.594 from 10,000 and 0.577-0.589 by rejection
+# sampling (scripts/nre_two_moons_patience.py, PERF.md section 6). The
+# control, which must fail the gate, is NRE_DRAWS other reference draws
+# jittered by N(0, NRE_CONTROL_JITTER^2 I): it read means of 0.785-0.786
+# on the CPU (0.72-0.75 at observation 0), the reference against itself
+# 0.48-0.49. The JAX package read 0.5165 at the full recipe
+# (bm_results_round2.csv:15, sklearn's C2ST). The sampling rate is
+# nle_slcp's configuration on the trained ratio at observation 0.
+NRE_SIMS, NRE_BATCH, NRE_ATOMS, NRE_MAX_EPOCHS = 30_000, 200, 10, 300
+NRE_CHAINS, NRE_WARMUP, NRE_THIN, NRE_DRAWS, NRE_INIT_CANDIDATES = 200, 300, 3, 2_000, 10_000
+NRE_C2ST_MEAN_MAX, NRE_C2ST_EACH_MAX, NRE_CONTROL_JITTER = 0.62, 0.65, 0.15
+NRE_C2ST_MEAN_TARGET = 0.60
+SBI_TPU_NRE_TWO_MOONS = {"c2st_mean": 0.5165, "c2st": [0.4848, 0.53, 0.5347], "simulations": 30_000,
+                         "patience": 150, "classifier": "sklearn",
+                         "source": "bm_results_round2.csv:15"}
+# sample_with="rejection" and "importance" on the same ratio at observation
+# 0: NRE_IS_DRAWS draws each, the same gate and control. SIR draws one
+# winner from each block of NRE_SIR_OVERSAMPLING prior draws: the
+# posterior holds well under 1% of the prior box, so the default block of
+# 32 rarely holds a posterior draw at all.
+NRE_IS_DRAWS, NRE_SIR_OVERSAMPLING, NRE_PSIS_DRAWS = 1_000, 2_048, 10_000
+# tests/test_nle_nre.py:18-69's slow tests: the 2-D linear Gaussian (shift
+# -1, covariance 0.3 I, prior N(0, I)), 2,500 simulations, batch 100, to
+# patience (capped here at NRE_LG_MAX_EPOCHS); 100 chains, warmup 100,
+# 1,000 draws at x_o = 0 against the analytic posterior: C2ST within
+# 0.5 +- 0.1 (check_c2st) for NRE_A and NRE_C; BNRE's mean posterior
+# variance above half the true 0.3 / 1.3.
+NRE_LG_SIMS, NRE_LG_BATCH, NRE_LG_MAX_EPOCHS, NRE_LG_CHAINS = 2_500, 100, 300, 100
+NRE_LG_WARMUP, NRE_LG_DRAWS, NRE_LG_C2ST_TOL = 100, 1_000, 0.1
+# Two rounds of SNRE_B on two_moons (2 x 2,000 simulations, the second
+# drawn from the first posterior at observation 0), and an NRE_B ensemble
+# on the linear Gaussian's data, cut to a few epochs.
+SNRE_ROUND_SIMS, SNRE_EPOCHS = 2_000, (60, 30)
+NRE_ENS_MEMBERS, NRE_ENS_EPOCHS = 4, 5
 
 
 _START = time.perf_counter()
@@ -2253,6 +2321,300 @@ def diffuser_sampling(torch, device, seed):
          strict_steps_by_corrector=strict)
 
 
+# ---------------------------------------------------------------------------
+# NRE
+# ---------------------------------------------------------------------------
+
+
+def nre_gate(scores):
+    return sum(scores) / len(scores) <= NRE_C2ST_MEAN_MAX and max(scores) <= NRE_C2ST_EACH_MAX
+
+
+def nre_control(torch, ref, n, gen):
+    """C2ST of ``n`` reference draws jittered by NRE_CONTROL_JITTER against
+    ``n`` others: the control that must fail the gate."""
+    from sbi_tpu_torch.utils import c2st_torch
+
+    jittered = ref[n: 2 * n] + NRE_CONTROL_JITTER * torch.randn(n, ref.shape[-1], generator=gen,
+                                                                device=ref.device)
+    return float(c2st_torch(jittered, ref[:n], generator=gen))
+
+
+def nre_two_moons(torch, fsm, device, seed):
+    """two_moons NRE_B at the round-2 recipe: train steps/s, the device-busy
+    share of one profiled epoch (of a copy of the trainer), then observations
+    0-2 in one ``sample_batched`` run, scored by C2ST beside the control.
+    Returns the trainer."""
+    import copy
+    import warnings
+
+    from sbi_tpu_torch.inference import NRE_B, simulate_for_sbi
+    from sbi_tpu_torch.simulators import get_task
+    from sbi_tpu_torch.utils import c2st_torch
+
+    gen = torch.Generator(device=device).manual_seed(seed + 300)
+    task = get_task("two_moons", device=device)
+    theta, x = simulate_for_sbi(task.simulator, task.prior, NRE_SIMS, generator=gen)
+    inference = NRE_B(prior=task.prior)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "Maximum number of epochs reached"
+        _, t_train = sync_time(torch, lambda: inference.append_simulations(theta, x).train(
+            num_atoms=NRE_ATOMS, training_batch_size=NRE_BATCH, max_num_epochs=NRE_MAX_EPOCHS,
+            generator=gen))
+        steps, epochs = inference._opt_steps, inference.summary["epochs_trained"][-1]
+        net = inference._neural_net.net
+        check(type(net).__name__ == "ResNetClassifierModule" and len(net.blocks) == 2
+              and net.inp.out_features == 50, f"classifier {net}")
+        clone = copy.deepcopy(inference)
+        profiled = device_breakdown(torch, lambda: clone.train(
+            num_atoms=NRE_ATOMS, training_batch_size=NRE_BATCH, max_num_epochs=1,
+            resume_training=True, generator=gen))
+    losses = inference.summary["validation_loss"]
+    check(all(math.isfinite(v) for v in losses) and min(losses) < losses[0], f"NRE losses {losses}")
+
+    posterior = inference.build_posterior(mcmc_parameters=dict(
+        num_chains=NRE_CHAINS, warmup_steps=NRE_WARMUP, thin=NRE_THIN))
+    observations, references = reference_posteriors("two_moons")
+    xs = torch.as_tensor(observations, device=device)
+    with FsmCounts(torch, fsm) as counts:
+        draws, t_sample = sync_time(torch, lambda: posterior.sample_batched(
+            (NRE_DRAWS,), x=xs, generator=gen, num_chains=NRE_CHAINS,
+            num_init_candidates=NRE_INIT_CANDIDATES))
+    check(tuple(draws.shape) == (NRE_DRAWS, len(observations), 2), f"NRE draws {tuple(draws.shape)}")
+    check(bool(torch.isfinite(draws).all()), "non-finite NRE sample")
+    check(bool(task.prior.within_support(draws.reshape(-1, 2)).all()), "NRE sample outside the prior")
+    refs = [torch.as_tensor(r, device=device) for r in references]
+    scores = [float(c2st_torch(draws[:, i], ref[:NRE_DRAWS], generator=gen)) for i, ref in enumerate(refs)]
+    controls = [nre_control(torch, ref, NRE_DRAWS, gen) for ref in refs]
+    emit("nre_two_moons", simulations=NRE_SIMS, classifier="resnet", hidden=50, blocks=2,
+         atoms=NRE_ATOMS, batch=NRE_BATCH, epochs=epochs, max_epochs=NRE_MAX_EPOCHS,
+         patience=20, early_stopped=epochs < NRE_MAX_EPOCHS,
+         cut=f"patience 20 (the recipe's 150), at most {NRE_MAX_EPOCHS} epochs",
+         train_s=t_train, steps=steps, steps_per_s=steps / t_train,
+         best_validation_loss=inference.summary["best_validation_loss"][-1],
+         profiled_epoch=profiled, chains=NRE_CHAINS, warmup=NRE_WARMUP, thin=NRE_THIN,
+         init_candidates=NRE_INIT_CANDIDATES, draws=NRE_DRAWS, sample_batched_s=t_sample,
+         **counts.fields(t_sample), c2st=scores, c2st_mean=sum(scores) / len(scores),
+         control_c2st=controls,
+         control_c2st_mean=sum(controls) / len(controls), control_jitter=NRE_CONTROL_JITTER,
+         c2st_bar={"mean": NRE_C2ST_MEAN_MAX, "each": NRE_C2ST_EACH_MAX},
+         target_mean_bar=NRE_C2ST_MEAN_TARGET,
+         met_target_mean_bar=sum(scores) / len(scores) <= NRE_C2ST_MEAN_TARGET,
+         sbi_tpu_reference=SBI_TPU_NRE_TWO_MOONS)
+    check(nre_gate(scores), f"NRE two_moons C2ST {scores}")
+    check(not nre_gate(controls), f"the control passed the gate: {controls}")
+    return inference
+
+
+def nre_slice(torch, fsm, device, seed, inference):
+    """``nre_slice_samples_per_sec``: nle_slcp's sampling configuration
+    (1,000 chains, warmup 10, 5 samples a chain) on the trained ratio at
+    observation 0: a warm run with every host sync but the loop
+    condition's refused, a timed run and a profiled one."""
+    gen = torch.Generator(device=device).manual_seed(seed + 310)
+    posterior = inference.build_posterior()
+    x_o = torch.as_tensor(reference_posteriors("two_moons")[0][0], device=device)
+
+    def sample():
+        return posterior.sample((NLE_CHAINS * NLE_SAMPLES,), x=x_o, generator=gen,
+                                num_chains=NLE_CHAINS, warmup_steps=NLE_WARMUP)
+
+    with FsmCounts(torch, fsm, strict=device.type == "cuda"):
+        sample()
+    with FsmCounts(torch, fsm) as counts:
+        samples, seconds = sync_time(torch, sample)
+    with FsmCounts(torch, fsm) as profiled_counts:
+        profiled = device_breakdown(torch, sample)
+    check(tuple(samples.shape) == (NLE_CHAINS * NLE_SAMPLES, 2), f"NRE samples {tuple(samples.shape)}")
+    check(bool(torch.isfinite(samples).all()), "non-finite NRE sample")
+    emit("nre_slice", chains=NLE_CHAINS, warmup=NLE_WARMUP, samples_per_chain=NLE_SAMPLES,
+         seconds=seconds, nre_slice_samples_per_sec=NLE_CHAINS * NLE_SAMPLES / seconds,
+         **counts.fields(seconds),
+         device_ops_per_iteration=profiled["device_ops"] / max(profiled_counts.iterations, 1),
+         profiled_run=profiled)
+
+
+def nre_rejection_importance(torch, device, seed, inference):
+    """``sample_with="rejection"`` and ``"importance"`` (SIR) on the
+    trained two_moons ratio at observation 0: C2ST beside the control, the
+    acceptance rate, the importance ESS and the PSIS k-hat; the rejection
+    sampler's ascent with every host sync refused."""
+    from sbi_tpu_torch.samplers.importance import importance_resampling_weights_ess
+    from sbi_tpu_torch.samplers.rejection import ascend_log_ratio, rejection_sample
+    from sbi_tpu_torch.utils import c2st_torch
+
+    gen = torch.Generator(device=device).manual_seed(seed + 320)
+    observations, references = reference_posteriors("two_moons")
+    x_o = torch.as_tensor(observations[0], device=device)
+    ref = torch.as_tensor(references[0], device=device)
+    rejection = inference.build_posterior(sample_with="rejection")
+    importance = inference.build_posterior(
+        sample_with="importance",
+        importance_sampling_parameters=dict(oversampling_factor=NRE_SIR_OVERSAMPLING))
+    out = {}
+    for name, posterior in (("rejection", rejection), ("importance", importance)):
+        samples, t = sync_time(torch, lambda: posterior.sample((NRE_IS_DRAWS,), x=x_o, generator=gen))
+        check(tuple(samples.shape) == (NRE_IS_DRAWS, 2) and bool(torch.isfinite(samples).all()),
+              f"{name} samples")
+        out[name] = {"seconds": t, "c2st": float(c2st_torch(samples, ref[:NRE_IS_DRAWS], generator=gen))}
+    _, rate = rejection_sample(rejection.potential_fn, rejection.proposal, generator=gen,
+                               num_samples=NRE_IS_DRAWS)
+    _, log_w = importance.sample_with_weights(NRE_PSIS_DRAWS, x=x_o, generator=gen)
+    k_hat = importance.evaluate(x=x_o, num_samples=NRE_PSIS_DRAWS, generator=gen)
+    start = rejection.proposal.sample((1,), generator=gen)
+    with no_host_sync(torch, device):
+        end = ascend_log_ratio(rejection.potential_fn, rejection.proposal, start)
+    check(bool(torch.isfinite(end).all()), "non-finite ascent")
+    control = nre_control(torch, ref, NRE_IS_DRAWS, gen)
+    emit("nre_rejection_importance", observation=0, draws=NRE_IS_DRAWS, **out,
+         acceptance_rate=float(rate), sir_oversampling=NRE_SIR_OVERSAMPLING,
+         importance_ess=float(importance_resampling_weights_ess(log_w)),
+         importance_draws=NRE_PSIS_DRAWS, psis_k_hat=k_hat, control_c2st=control,
+         ascent_without_host_sync=True,
+         c2st_bar={"mean": NRE_C2ST_MEAN_MAX, "each": NRE_C2ST_EACH_MAX})
+    check(all(nre_gate([v["c2st"]]) for v in out.values()), f"rejection / importance C2ST {out}")
+    check(not nre_gate([control]), f"the control passed the gate: {control}")
+
+
+def nre_linear_gaussian(torch, device, seed):
+    """NRE_A, NRE_C and BNRE at the JAX package's slow-test recipe."""
+    import warnings
+
+    from sbi_tpu_torch.inference import BNRE, NRE_A, NRE_C
+    from sbi_tpu_torch.utils import c2st_torch
+
+    gen = torch.Generator(device=device).manual_seed(seed + 330)
+    prior, simulator, truth = linear_gaussian_task(torch, device, 2)
+    theta = prior.sample((NRE_LG_SIMS,), generator=gen)
+    x = simulator(theta, generator=gen)
+    x_o = torch.zeros(1, 2, device=device)
+    ref = truth(x_o).sample((NRE_LG_DRAWS,), generator=gen)
+    results = {}
+    for cls in (NRE_A, NRE_C, BNRE):
+        inference = cls(prior=prior)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, t_train = sync_time(torch, lambda: inference.append_simulations(theta, x).train(
+                training_batch_size=NRE_LG_BATCH, max_num_epochs=NRE_LG_MAX_EPOCHS, generator=gen))
+        posterior = inference.build_posterior(mcmc_parameters=dict(
+            num_chains=NRE_LG_CHAINS, warmup_steps=NRE_LG_WARMUP))
+        samples, t_sample = sync_time(torch, lambda: posterior.sample(
+            (NRE_LG_DRAWS,), x=x_o, generator=gen))
+        check(bool(torch.isfinite(samples).all()), f"non-finite {cls.__name__} sample")
+        results[cls.__name__] = {
+            "epochs": inference.summary["epochs_trained"][-1], "train_s": t_train,
+            "steps_per_s": inference._opt_steps / t_train, "sample_s": t_sample,
+            "c2st": float(c2st_torch(samples, ref, generator=gen)),
+            "mean_variance": float(samples.var(0).mean())}
+    bnre_floor = 0.5 * MDN_LIK_VAR / (1.0 + MDN_LIK_VAR)
+    emit("nre_linear_gaussian", simulations=NRE_LG_SIMS, batch=NRE_LG_BATCH,
+         max_epochs=NRE_LG_MAX_EPOCHS, chains=NRE_LG_CHAINS, warmup=NRE_LG_WARMUP,
+         draws=NRE_LG_DRAWS, c2st_tolerance=NRE_LG_C2ST_TOL, bnre_variance_floor=bnre_floor,
+         true_variance=MDN_LIK_VAR / (1.0 + MDN_LIK_VAR), results=results)
+    for name in ("NRE_A", "NRE_C"):
+        check(abs(results[name]["c2st"] - 0.5) <= NRE_LG_C2ST_TOL, f"{name} C2ST {results[name]}")
+    check(results["BNRE"]["mean_variance"] > bnre_floor, f"BNRE variance {results['BNRE']}")
+    return prior, simulator, theta, x
+
+
+def snre_two_rounds(torch, device, seed):
+    """Two rounds of SNRE_B on two_moons: the second round's simulations
+    come from the first round's posterior at observation 0."""
+    import warnings
+
+    from sbi_tpu_torch.inference import SNRE_B
+    from sbi_tpu_torch.simulators import get_task
+
+    gen = torch.Generator(device=device).manual_seed(seed + 340)
+    task = get_task("two_moons", device=device)
+    x_o = torch.as_tensor(reference_posteriors("two_moons")[0][0], device=device)
+    inference = SNRE_B(prior=task.prior)
+    proposal = task.prior
+    t0 = time.perf_counter()
+    for epochs in SNRE_EPOCHS:
+        theta = proposal.sample((SNRE_ROUND_SIMS,), generator=gen)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            inference.append_simulations(theta, task.simulator(theta, generator=gen),
+                                         proposal=proposal).train(max_num_epochs=epochs, generator=gen)
+        proposal = inference.build_posterior(
+            mcmc_parameters=dict(num_chains=100, warmup_steps=100)).set_default_x(x_o)
+    samples = proposal.sample((500,), generator=gen)
+    torch.cuda.synchronize() if device.type == "cuda" else None
+    check(inference._data_round_index == [0, 1], f"rounds {inference._data_round_index}")
+    check(tuple(samples.shape) == (500, 2) and bool(torch.isfinite(samples).all())
+          and bool(task.prior.within_support(samples).all()), "SNRE_B round-2 samples")
+    emit("snre_two_rounds", simulations_per_round=SNRE_ROUND_SIMS, max_epochs=list(SNRE_EPOCHS),
+         epochs=inference.summary["epochs_trained"], seconds=time.perf_counter() - t0)
+
+
+def nre_ensemble(torch, device, seed, data):
+    """An NRE_B ensemble through ``train_ensemble`` on the linear
+    Gaussian's data: its posterior's potential must take the stacked (one
+    vmap) route and equal the members' own potentials; mixture and
+    product-of-experts draws; one ensemble step with every host sync
+    refused."""
+    import warnings
+
+    from sbi_tpu_torch.inference import NRE_B
+    from sbi_tpu_torch.inference.trainers.base import ensemble_grad_and_loss, ensemble_step
+
+    prior, _, theta, x = data
+    gen = torch.Generator(device=device).manual_seed(seed + 350)
+    inference = NRE_B(prior=prior)
+    inference.append_simulations(theta, x)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        members, t_train = sync_time(torch, lambda: inference.train_ensemble(
+            num_members=NRE_ENS_MEMBERS, training_batch_size=NRE_BATCH,
+            max_num_epochs=NRE_ENS_EPOCHS, epoch_chunk=NRE_ENS_EPOCHS, generator=gen))
+    x_o = torch.zeros(1, 2, device=device)
+    mcmc = dict(num_chains=100, warmup_steps=50)
+    posterior = inference.build_ensemble_posterior(mcmc_parameters=mcmc)
+    check(posterior.potential_fn.vmapped, "the NRE ensemble's potential is not the stacked route")
+    potential = posterior.potential_fn.set_x(x_o)
+    th = prior.sample((256,), generator=gen)
+    with torch.no_grad():
+        stacked = potential.member_potentials(th)
+        one_by_one = torch.stack([p.potential_fn(th) for p in posterior.posteriors])
+    stacked_err = float((stacked - one_by_one).abs().max())
+    check(stacked_err <= 1e-4 * float(one_by_one.abs().max()), f"stacked != members: {stacked_err}")
+    samples = posterior.sample((500,), x=x_o, generator=gen)
+    poe = inference.build_ensemble_posterior(potential_combination="product")
+    poe_samples, t_poe = sync_time(torch, lambda: poe.sample((500,), x=x_o, generator=gen, **mcmc))
+    check(bool(torch.isfinite(samples).all()) and bool(torch.isfinite(poe_samples).all()),
+          "non-finite NRE ensemble sample")
+
+    template = members[0]
+    params = {k: v.clone() for k, v in inference._ensemble_stacked_state.items()}
+    opt = torch.optim.Adam(list(params.values()), lr=5e-4, betas=(0.9, 0.999), eps=1e-8, foreach=True)
+    grad_and_loss = ensemble_grad_and_loss(template.net, inference._ensemble_loss_fn(template))
+    idx = torch.randint(theta.shape[0], (NRE_ENS_MEMBERS, NRE_LG_BATCH), generator=gen, device=device)
+    batch = (theta[idx], x[idx], torch.ones(idx.shape, device=device))
+    batch += inference._ensemble_extra_inputs(batch[0], gen, False)
+    with no_host_sync(torch, device):
+        loss = ensemble_step(grad_and_loss, params, opt, batch, 5.0)
+    check(bool(torch.isfinite(loss).all()), f"ensemble step loss {loss}")
+    steps = NRE_ENS_EPOCHS * (len(inference._train_indices) // NRE_BATCH)
+    emit("nre_ensemble", members=NRE_ENS_MEMBERS, epochs=NRE_ENS_EPOCHS, train_s=t_train,
+         ensemble_steps_per_s=steps / t_train, validation_loss=inference.summary["validation_loss"],
+         potential_route="stacked", stacked_vs_members_max_abs_err=stacked_err,
+         poe_sample_s=t_poe, step_without_host_sync=True)
+
+
+def nre_phases(torch, fsm, device, seed):
+    """The NRE path: two_moons NRE_B and its three samplers, the linear
+    Gaussian's NRE_A, NRE_C and BNRE, two rounds of SNRE_B, an ensemble."""
+    t0 = time.perf_counter()
+    inference = nre_two_moons(torch, fsm, device, seed)
+    nre_slice(torch, fsm, device, seed, inference)
+    nre_rejection_importance(torch, device, seed, inference)
+    data = nre_linear_gaussian(torch, device, seed)
+    snre_two_rounds(torch, device, seed)
+    nre_ensemble(torch, device, seed, data)
+    emit("nre", seconds=time.perf_counter() - t0)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2316,8 +2678,9 @@ def main(argv=None) -> int:
     merge = ensemble_merge(torch, rqs, device, args.seed)
 
     # 5-16. The main paths, serving, training, NLE and MCMC, ensembles, the
-    # MDN family and vector fields: each path's counts are zeroed just before
-    # it and read just after, and each of its kernels must have launched.
+    # MDN family, vector fields and NRE: each path's counts are zeroed just
+    # before it and read just after, and each of its kernels must have
+    # launched (none on the last three).
     from sbi_tpu_torch.samplers.mcmc import slice_fsm
 
     trained = {}  # the two_moons NPE trainer and nle_slcp's figures, used by later paths
@@ -2349,6 +2712,8 @@ def main(argv=None) -> int:
             vf_linear_gaussian(torch, device, args.seed),
             fmpe_cnn_highdim(torch, device, args.seed),
             diffuser_sampling(torch, device, args.seed))),
+        # Nor the NRE family: its classifiers are dense layers.
+        ("nre", (), lambda: nre_phases(torch, slice_fsm, device, args.seed)),
     )
     by_path = {}
     for path, kernels_of_path, drive in paths:
@@ -2370,7 +2735,9 @@ def main(argv=None) -> int:
         kernels.append({
             "name": f"rqs_spline_{direction}",
             "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-            "launches": launches[direction], "max_abs_err": worst[inverse],
+            "launches": launches[direction],
+            "launches_by_path": {p: c[direction] for p, c in by_path.items()},
+            "max_abs_err": worst[inverse],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "shape": f"n={t['n']}, K={t['K']}",
@@ -2384,11 +2751,13 @@ def main(argv=None) -> int:
     kernels.append({
         "name": "rqs_spline_backward", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES_BACKWARD, "launches": launches["backward"],
+        "launches_by_path": {p: c["backward"] for p, c in by_path.items()},
         "max_abs_err": worst_backward, "ms": backward["ms"], "plain_ms": backward["plain_ms"],
         "bound_ms": backward["bound_ms"], "bound_by": backward["bound_by"], "library_ms": None,
         "shape": f"n={backward['n']}, K={backward['K']}, forward direction",
         "vmap_rule": VMAP_RULE,
     })
+    emit("total", seconds=time.perf_counter() - _START)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

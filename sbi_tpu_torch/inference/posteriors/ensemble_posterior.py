@@ -8,7 +8,8 @@ Members that share one architecture and one z-scoring, as
 ``train_ensemble``'s do, have their potentials evaluated in one
 ``torch.func.vmap`` over their stacked parameters: a potential evaluation
 costs about the host ops of one member, and each spline launch covers every
-member (five launches for a five-layer NSF, whatever K). Other members,
+member (five launches for a five-layer NSF, whatever K). Posterior,
+likelihood and ratio estimators' potentials take that route. Other members,
 such as posteriors built by hand, are evaluated one by one; both routes
 give the same numbers.
 """
@@ -28,7 +29,7 @@ from .base_posterior import NeuralPosterior
 
 def _estimator(potential):
     """The estimator a member potential evaluates, or None."""
-    for name in ("posterior_estimator", "likelihood_estimator"):
+    for name in ("posterior_estimator", "likelihood_estimator", "ratio_estimator"):
         est = getattr(potential, name, None)
         if est is not None:
             return est

@@ -3,8 +3,10 @@
 PyTorch counterpart of ``sbi_tpu/inference/posteriors/posterior_parameters.py``:
 validated configurations that ``build_posterior(posterior_parameters=...)``
 takes. ``build_posterior_from_parameters`` builds a ``DirectPosterior``
-(NPE) or an ``MCMCPosterior`` (NPE or NLE); the other samplers and the
-ratio and vector-field kinds come with later slices and raise.
+(NPE), a ``VectorFieldPosterior`` (FMPE, NPSE), or an ``MCMCPosterior``, a
+``RejectionPosterior`` or an ``ImportanceSamplingPosterior`` over the
+potential of an NPE, NLE or NRE estimator; VI and the filtered direct
+posterior come with later slices and raise.
 """
 
 from __future__ import annotations
@@ -128,6 +130,36 @@ class VectorFieldPosteriorParameters:
             raise ValueError("sample_with must be 'sde' or 'ode'.")
 
 
+def potential_posterior(sample_with: str, potential_fn, theta_transform, prior,
+                        mcmc_method: str = "slice_jax_vectorized",
+                        mcmc_parameters: Optional[Dict] = None,
+                        rejection_sampling_parameters: Optional[Dict] = None,
+                        importance_sampling_parameters: Optional[Dict] = None):
+    """The posterior of a potential that the trainers' ``build_posterior(
+    sample_with=...)`` builds, the prior as proposal: an
+    ``MCMCPosterior`` (``"mcmc"``), a ``RejectionPosterior`` or an
+    ``ImportanceSamplingPosterior``. ``"vi"`` comes with a later slice."""
+    if sample_with == "mcmc":
+        from .mcmc_posterior import MCMCPosterior
+
+        return MCMCPosterior(potential_fn, theta_transform=theta_transform, proposal=prior,
+                             method=mcmc_method, **(mcmc_parameters or {}))
+    if sample_with == "rejection":
+        from .rejection_posterior import RejectionPosterior
+
+        return RejectionPosterior(potential_fn, proposal=prior,
+                                  **(rejection_sampling_parameters or {}))
+    if sample_with == "importance":
+        from .importance_posterior import ImportanceSamplingPosterior
+
+        return ImportanceSamplingPosterior(potential_fn, proposal=prior,
+                                           theta_transform=theta_transform,
+                                           **(importance_sampling_parameters or {}))
+    if sample_with == "vi":
+        raise NotImplementedError(f"build_posterior(sample_with='vi') {_LATER_SLICE}.")
+    raise NotImplementedError(f"sample_with='{sample_with}' not supported.")
+
+
 def build_posterior_from_parameters(parameters, estimator, prior, kind: str = "npe"):
     """The posterior that ``parameters`` describes, over ``estimator`` of a
     trainer of ``kind`` (``"npe"``, ``"nle"``, ``"nre"`` or ``"vf"``). A
@@ -156,22 +188,33 @@ def build_posterior_from_parameters(parameters, estimator, prior, kind: str = "n
         from .vector_field_posterior import VectorFieldPosterior
 
         return VectorFieldPosterior(estimator, prior, **kwargs)
-    if isinstance(parameters, MCMCPosteriorParameters):
-        if kind == "nle":
-            from ..potentials.likelihood_based_potential import (
-                likelihood_estimator_based_potential as make_potential,
-            )
-        elif kind == "npe":
-            from ..potentials.posterior_based_potential import (
-                posterior_estimator_based_potential as make_potential,
-            )
-        else:
-            raise NotImplementedError(f"MCMC over a '{kind}' estimator {_LATER_SLICE}.")
-        from .mcmc_posterior import MCMCPosterior
-
-        potential_fn, theta_transform = make_potential(estimator, prior, x_o=None)
-        return MCMCPosterior(potential_fn, proposal=prior, theta_transform=theta_transform, **kwargs)
-    if isinstance(parameters, (RejectionPosteriorParameters, ImportanceSamplingPosteriorParameters,
-                               VIPosteriorParameters)):
+    if isinstance(parameters, VIPosteriorParameters):
         raise NotImplementedError(f"The posterior of {type(parameters).__name__} {_LATER_SLICE}.")
-    raise TypeError(f"Unknown posterior parameters type {type(parameters)}")
+    if not isinstance(parameters, (MCMCPosteriorParameters, RejectionPosteriorParameters,
+                                   ImportanceSamplingPosteriorParameters)):
+        raise TypeError(f"Unknown posterior parameters type {type(parameters)}")
+    # Potential-based posteriors need the potential of the kind.
+    if kind == "nle":
+        from ..potentials.likelihood_based_potential import (
+            likelihood_estimator_based_potential as make_potential,
+        )
+    elif kind == "nre":
+        from ..potentials.ratio_based_potential import (
+            ratio_estimator_based_potential as make_potential,
+        )
+    elif kind == "npe":
+        from ..potentials.posterior_based_potential import (
+            posterior_estimator_based_potential as make_potential,
+        )
+    else:
+        raise NotImplementedError(
+            f"The posterior of {type(parameters).__name__} over a '{kind}' estimator {_LATER_SLICE}.")
+    potential_fn, theta_transform = make_potential(estimator, prior, x_o=None)
+    if isinstance(parameters, MCMCPosteriorParameters):
+        return potential_posterior("mcmc", potential_fn, theta_transform, prior,
+                                   mcmc_method=kwargs.pop("method"), mcmc_parameters=kwargs)
+    if isinstance(parameters, RejectionPosteriorParameters):
+        return potential_posterior("rejection", potential_fn, theta_transform, prior,
+                                   rejection_sampling_parameters=kwargs)
+    return potential_posterior("importance", potential_fn, theta_transform, prior,
+                               importance_sampling_parameters=kwargs)

@@ -114,6 +114,18 @@ def warmup_cosine_decay(step: int, init_value: float, peak_value: float, warmup_
     return peak_value * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t / span)) + alpha)
 
 
+def contrast_indices(B: int, M: int, generator: Optional[torch.Generator], device,
+                     batch_shape: tuple = ()) -> torch.Tensor:
+    """(*batch_shape, B, M) atom indices into a batch of B rows: row i is
+    [i, c_1, ..., c_{M-1}] with the c distinct rows != i, the first M - 1
+    of a random permutation of 0..B-2 mapped j -> j + (j >= i). NPE-C's
+    atomic loss and the NRE losses contrast with them."""
+    picks = torch.rand(tuple(batch_shape) + (B, B - 1), generator=generator,
+                       device=device).argsort(dim=-1)[..., : M - 1]
+    rows = torch.arange(B, device=device)[:, None]
+    return torch.cat([rows.expand(tuple(batch_shape) + (B, 1)), picks + (picks >= rows)], dim=-1)
+
+
 @torch.no_grad()
 def clip_by_global_norm_(grads, max_norm: float) -> None:
     """``optax.clip_by_global_norm`` in place, on the device: when the

@@ -4,9 +4,9 @@ PyTorch counterpart of ``sbi_tpu/inference/trainers/nle/nle_base.py``: the
 loss is -log p(x | theta) (the estimator's input is x, its condition
 theta), trained by ``NeuralInference._run_training_loop``; the posterior is
 the likelihood potential times the prior, sampled by the vectorized slice
-sampler (``MCMCPosterior``), or as typed ``posterior_parameters``
-describe it. The other samplers (``sample_with="vi"``, ``"rejection"``,
-``"importance"``) come with later slices.
+sampler (``MCMCPosterior``), by rejection or by importance sampling, or as
+typed ``posterior_parameters`` describe it. ``sample_with="vi"`` comes
+with a later slice.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 from ....neural_nets.factory import likelihood_nn
 from ....utils.sbiutils import handle_invalid_x, nle_nre_apt_msg_on_invalid_x
 from .._contracts import TrainConfig
-from ..base import NeuralInference, _LATER_SLICE
+from ..base import NeuralInference
 
 
 class LikelihoodEstimatorTrainer(NeuralInference):
@@ -143,11 +143,16 @@ class LikelihoodEstimatorTrainer(NeuralInference):
         importance_sampling_parameters: Optional[Dict] = None,
         posterior_parameters=None,
     ):
-        """An ``MCMCPosterior`` (vectorized slice sampling by default) over
-        the likelihood potential of a frozen copy of the estimator, and the
-        prior."""
-        from ...posteriors.mcmc_posterior import MCMCPosterior
+        """The posterior of the likelihood potential of a frozen copy of
+        the estimator and the prior: an ``MCMCPosterior`` (vectorized slice
+        sampling by default), a ``RejectionPosterior`` or an
+        ``ImportanceSamplingPosterior``."""
         from ...potentials.likelihood_based_potential import likelihood_estimator_based_potential
+        from ...posteriors.posterior_parameters import (
+            build_posterior_from_parameters,
+            check_legacy_sampler_args,
+            potential_posterior,
+        )
 
         prior = prior if prior is not None else self._prior
         if prior is None:
@@ -156,11 +161,6 @@ class LikelihoodEstimatorTrainer(NeuralInference):
         if estimator is None:
             raise ValueError("Run `.train()` first or pass a density_estimator.")
         if posterior_parameters is not None:
-            from ...posteriors.posterior_parameters import (
-                build_posterior_from_parameters,
-                check_legacy_sampler_args,
-            )
-
             check_legacy_sampler_args(
                 {
                     "mcmc_parameters": mcmc_parameters,
@@ -173,17 +173,13 @@ class LikelihoodEstimatorTrainer(NeuralInference):
             self._posterior = build_posterior_from_parameters(
                 posterior_parameters, estimator.snapshot(), prior, kind="nle")
             return self._posterior
-        if sample_with != "mcmc":
-            raise NotImplementedError(f"build_posterior(sample_with='{sample_with}') {_LATER_SLICE}.")
         potential_fn, theta_transform = likelihood_estimator_based_potential(
             estimator.snapshot(), prior, x_o=None)
-        self._posterior = MCMCPosterior(
-            potential_fn,
-            theta_transform=theta_transform,
-            proposal=prior,
-            method=mcmc_method,
-            **(mcmc_parameters or {}),
-        )
+        self._posterior = potential_posterior(
+            sample_with, potential_fn, theta_transform, prior, mcmc_method=mcmc_method,
+            mcmc_parameters=mcmc_parameters,
+            rejection_sampling_parameters=rejection_sampling_parameters,
+            importance_sampling_parameters=importance_sampling_parameters)
         return self._posterior
 
 

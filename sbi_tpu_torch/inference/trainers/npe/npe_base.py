@@ -4,8 +4,9 @@ PyTorch counterpart of ``sbi_tpu/inference/trainers/npe/npe_base.py``:
 ``append_simulations(..., proposal=)`` round bookkeeping, ``train()``, the
 first-round loss -log q(theta | x) (optionally weighted by a calibration
 kernel), the lazy net build from the first round's data, and
-``build_posterior``: ``sample_with="direct"`` or ``"mcmc"``, or typed
-``posterior_parameters``. The other samplers come with later slices.
+``build_posterior``: ``sample_with="direct"``, ``"mcmc"``, ``"rejection"``
+or ``"importance"``, or typed ``posterior_parameters``; ``"vi"`` comes
+with a later slice.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from ....neural_nets.factory import posterior_nn
 from .._contracts import TrainConfig
-from ..base import NeuralInference, _LATER_SLICE, check_if_proposal_has_default_x
+from ..base import NeuralInference, check_if_proposal_has_default_x
 
 
 class PosteriorEstimatorTrainer(NeuralInference):
@@ -190,13 +191,17 @@ class PosteriorEstimatorTrainer(NeuralInference):
         importance_sampling_parameters: Optional[Dict] = None,
         posterior_parameters=None,
     ):
-        """A ``DirectPosterior`` (``sample_with="direct"``) or an
-        ``MCMCPosterior`` over the posterior potential (``"mcmc"``), over a
+        """A ``DirectPosterior`` (``sample_with="direct"``), or an
+        ``MCMCPosterior`` (``"mcmc"``), ``RejectionPosterior`` or
+        ``ImportanceSamplingPosterior`` over the posterior potential, over a
         frozen copy of the estimator and the prior; or the posterior that
         ``posterior_parameters`` describes (``build_posterior_from_parameters``).
-        The other ``sample_with`` values come with later slices."""
+        ``"vi"`` comes with a later slice."""
         from ...posteriors.direct_posterior import DirectPosterior
-        from ...posteriors.mcmc_posterior import MCMCPosterior
+        from ...posteriors.posterior_parameters import (
+            build_posterior_from_parameters,
+            potential_posterior,
+        )
         from ...potentials.posterior_based_potential import posterior_estimator_based_potential
 
         prior = prior if prior is not None else self._prior
@@ -205,13 +210,9 @@ class PosteriorEstimatorTrainer(NeuralInference):
             raise ValueError("Run `.train()` first or pass a density_estimator.")
         estimator = estimator.snapshot()
         if posterior_parameters is not None:
-            from ...posteriors.posterior_parameters import build_posterior_from_parameters
-
             self._posterior = build_posterior_from_parameters(
                 posterior_parameters, estimator, prior, kind="npe")
             return self._posterior
-        if sample_with not in ("direct", "mcmc"):
-            raise NotImplementedError(f"build_posterior(sample_with='{sample_with}') {_LATER_SLICE}.")
         if sample_with == "direct":
             self._posterior = DirectPosterior(
                 posterior_estimator=estimator,
@@ -221,11 +222,9 @@ class PosteriorEstimatorTrainer(NeuralInference):
         else:
             potential_fn, theta_transform = posterior_estimator_based_potential(
                 estimator, prior, x_o=None)
-            self._posterior = MCMCPosterior(
-                potential_fn,
-                theta_transform=theta_transform,
-                proposal=prior,
-                method=mcmc_method,
-                **(mcmc_parameters or {}),
-            )
+            self._posterior = potential_posterior(
+                sample_with, potential_fn, theta_transform, prior, mcmc_method=mcmc_method,
+                mcmc_parameters=mcmc_parameters,
+                rejection_sampling_parameters=rejection_sampling_parameters,
+                importance_sampling_parameters=importance_sampling_parameters)
         return self._posterior

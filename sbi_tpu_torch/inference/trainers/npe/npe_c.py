@@ -19,6 +19,7 @@ import torch
 from ....neural_nets.estimators.mdn import MixtureDensityEstimator, MoG
 from ....utils.distributions import BoxUniform, Independent, MultivariateNormal, Uniform
 from ....utils.transforms import AffineTransform, IdentityTransform
+from ..base import contrast_indices
 from .npe_base import PosteriorEstimatorTrainer
 
 
@@ -113,12 +114,8 @@ class NPE_C(PosteriorEstimatorTrainer):
             B = theta_b.shape[0]
             M = min(num_atoms, B)
             device = theta_b.device
-            # Row i contrasts with M - 1 distinct rows != i: the first M - 1
-            # of a random permutation of 0..B-2, mapped j -> j + (j >= i).
-            picks = torch.rand((B, B - 1), generator=generator, device=device).argsort(dim=1)[:, : M - 1]
-            row_idx = torch.arange(B, device=device)[:, None]
-            contrast_idx = picks + (picks >= row_idx)
-            atomic_idx = torch.cat([row_idx, contrast_idx], dim=1)  # (B, M)
+            # Row i contrasts with M - 1 distinct rows != i.
+            atomic_idx = contrast_indices(B, M, generator, device)  # (B, M)
             atomic_theta = theta_b[atomic_idx]  # (B, M, D)
 
             # q(atomic_theta | x_i): (M, B) in the (sample, batch, event) API.

@@ -1,3 +1,3 @@
-from .factory import likelihood_nn, posterior_flow_nn, posterior_nn, posterior_score_nn
+from .factory import classifier_nn, likelihood_nn, posterior_flow_nn, posterior_nn, posterior_score_nn
 
-__all__ = ["likelihood_nn", "posterior_flow_nn", "posterior_nn", "posterior_score_nn"]
+__all__ = ["classifier_nn", "likelihood_nn", "posterior_flow_nn", "posterior_nn", "posterior_score_nn"]

@@ -13,6 +13,12 @@ from .flows import (
 )
 from .flowmatching_estimator import FlowMatchingEstimator
 from .mdn import MDNModule, MixtureDensityEstimator, MoG, MultivariateGaussianMDN
+from .ratio_estimators import (
+    LinearClassifierModule,
+    MLPClassifierModule,
+    RatioEstimator,
+    ResNetClassifierModule,
+)
 from .score_estimator import (
     ConditionalScoreEstimator,
     SubVPScoreEstimator,
@@ -29,6 +35,8 @@ __all__ = [
     "FlowMatchingEstimator",
     "FlowModule",
     "LULinear",
+    "LinearClassifierModule",
+    "MLPClassifierModule",
     "MDNModule",
     "MADENet",
     "MaskedAffineAutoregressive",
@@ -39,6 +47,8 @@ __all__ = [
     "MultivariateGaussianMDN",
     "Permutation",
     "RQSCoupling",
+    "RatioEstimator",
+    "ResNetClassifierModule",
     "SubVPScoreEstimator",
     "VEScoreEstimator",
     "VPScoreEstimator",

@@ -2,8 +2,9 @@
 closures so nets are shaped and z-scored from the first data batch
 (PyTorch counterpart of ``sbi_tpu/neural_nets/factory.py``). The port
 has ``model="nsf"``, ``"maf"`` and ``"mdn"``, for posteriors and for
-likelihoods, and the vector-field builders ``posterior_score_nn`` and
-``posterior_flow_nn``; the other models come with later slices.
+likelihoods, the ratio classifiers of ``classifier_nn`` and the
+vector-field builders ``posterior_score_nn`` and ``posterior_flow_nn``;
+the other models come with later slices.
 """
 
 from __future__ import annotations
@@ -84,6 +85,43 @@ def likelihood_nn(
 
     def build_fn(batch_theta, batch_x):
         return inner(batch_x, batch_theta)
+
+    return build_fn
+
+
+def classifier_nn(
+    model: str = "resnet",
+    z_score_theta: Optional[str] = "independent",
+    z_score_x: Optional[str] = "independent",
+    hidden_features: int = 50,
+    embedding_net_theta=None,
+    embedding_net_x=None,
+    **kwargs,
+) -> Callable:
+    """Ratio-classifier builder for NRE: ``"linear"``, ``"mlp"`` or
+    ``"resnet"``. An unknown model raises ``NotImplementedError`` when the
+    builder is called, as in the JAX package. ``device`` and ``generator``
+    pass through ``kwargs`` to the builder."""
+
+    def build_fn(batch_theta, batch_x):
+        from .net_builders.classifier import (
+            build_linear_classifier,
+            build_mlp_classifier,
+            build_resnet_classifier,
+        )
+
+        builders = {
+            "linear": build_linear_classifier,
+            "mlp": build_mlp_classifier,
+            "resnet": build_resnet_classifier,
+        }
+        if model not in builders:
+            raise NotImplementedError(f"Unknown classifier model '{model}'.")
+        return builders[model](
+            batch_theta, batch_x, z_score_theta=z_score_theta, z_score_x=z_score_x,
+            hidden_features=hidden_features, embedding_net_theta=embedding_net_theta,
+            embedding_net_x=embedding_net_x, **kwargs,
+        )
 
     return build_fn
 

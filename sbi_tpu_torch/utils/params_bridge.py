@@ -1,5 +1,5 @@
-"""Load ``sbi_tpu`` flow, MDN, vector-field and embedding parameters into
-this package's estimators and modules.
+"""Load ``sbi_tpu`` flow, MDN, ratio-classifier, vector-field and embedding
+parameters into this package's estimators and modules.
 
 The JAX package's parameters arrive as a nested dict of numpy arrays (for
 example ``jax.tree_util.tree_map(np.asarray, est.params)``); this module
@@ -15,6 +15,12 @@ imports no JAX. Layer names follow flax:
     ``Dense_{L-1}``, then the logits ``Dense_L``, means ``Dense_{L+1}``,
     diagonal ``Dense_{L+2}`` and off-diagonal ``Dense_{L+3}`` heads
     (``L = num_layers``; no off-diagonal head at D = 1);
+  - the ratio classifiers: ``Dense_0`` to ``Dense_{L-1}`` the hidden layers
+    of an ``MLPClassifierModule`` and ``Dense_L`` its head; ``Dense_0`` the
+    input layer of a ``ResNetClassifierModule``, ``Dense_{2i+1}`` and
+    ``Dense_{2i+2}`` block i's two layers, the last ``Dense`` the head;
+    ``Dense_0`` a ``LinearClassifierModule``; their embedding nets nested
+    as ``embedding_net_theta`` and ``embedding_net_x``;
   - ``VectorFieldMLP``: ``Dense_0`` the input layer, ``Dense_1`` to
     ``Dense_{L-1}`` the residual layers, ``Dense_L`` the output;
   - ``VectorFieldAdaMLP``: ``Dense_0`` the (condition, time) layer,
@@ -47,6 +53,11 @@ from torch import nn
 from ..neural_nets.embedding_nets import CNNEmbedding, FCEmbedding, IdentityEmbedding
 from ..neural_nets.estimators.base import ConditionalEstimator, stack_nets
 from ..neural_nets.estimators.mdn import MDNModule
+from ..neural_nets.estimators.ratio_estimators import (
+    LinearClassifierModule,
+    MLPClassifierModule,
+    ResNetClassifierModule,
+)
 from ..neural_nets.net_builders.vector_field_nets import VectorFieldAdaMLP, VectorFieldMLP
 from ..neural_nets.estimators.flows import (
     LULinear,
@@ -57,6 +68,9 @@ from ..neural_nets.estimators.flows import (
     RQSCoupling,
 )
 from .transforms import AffineTransform
+
+
+_CLASSIFIERS = (LinearClassifierModule, MLPClassifierModule, ResNetClassifierModule)
 
 
 def _copy(dst: torch.Tensor, src, name: str) -> None:
@@ -116,6 +130,21 @@ def _load_vector_field(net: nn.Module, tree: Mapping) -> int:
     return n
 
 
+def _load_classifier(net: nn.Module, tree: Mapping) -> int:
+    if isinstance(net, LinearClassifierModule):
+        denses = [net.out]
+    elif isinstance(net, MLPClassifierModule):
+        denses = list(net.hidden) + [net.out]
+    else:
+        denses = [net.inp] + [layer for block in net.blocks for layer in block] + [net.out]
+    n = sum(_load_dense(d, tree[f"Dense_{j}"], f"Dense_{j}") for j, d in enumerate(denses))
+    for name in ("embedding_net_theta", "embedding_net_x"):
+        embedding = getattr(net, name, None)
+        if embedding is not None:
+            n += load_flax_embedding(embedding, tree[name], name)
+    return n
+
+
 def _load_made(made: MADENet, p: Mapping, name: str) -> int:
     n = 0
     for j, layer in enumerate(made.masked):
@@ -133,9 +162,10 @@ def load_flax_params(
     condition_loc=None,
     condition_scale=None,
 ) -> ConditionalEstimator:
-    """Copy flax flow parameters into ``estimator.net`` (built with the same
+    """Copy flax parameters into ``estimator.net`` (built with the same
     configuration) and, where given, set its z-scoring transforms to
-    ``AffineTransform(loc, scale)``. Every leaf must be used exactly once.
+    ``AffineTransform(loc, scale)`` (for a ratio estimator, the input is
+    theta and the condition x). Every leaf must be used exactly once.
     Returns the estimator."""
     tree = params.get("params", params)
     leaves = sum(_count_leaves(v) for v in tree.values())
@@ -146,6 +176,8 @@ def load_flax_params(
             used = _load_mdn(estimator.net, tree)
         if isinstance(estimator.net, (VectorFieldMLP, VectorFieldAdaMLP)):
             used = _load_vector_field(estimator.net, tree)
+        if isinstance(estimator.net, _CLASSIFIERS):
+            used = _load_classifier(estimator.net, tree)
         for i, layer in enumerate(getattr(estimator.net, "layers", ())):
             name = f"layers_{i}"
             if isinstance(layer, Permutation):

@@ -265,6 +265,73 @@ def test_vector_fields_default_to_cuda():
         assert posterior.sample((5,), x=np.zeros(2, np.float32), steps=10).shape == (5, 2)
 
 
+def test_nre_modules_leave_jax_out():
+    code = (
+        "import sys\n"
+        "import sbi_tpu_torch.neural_nets.estimators.ratio_estimators, "
+        "sbi_tpu_torch.neural_nets.net_builders.classifier, "
+        "sbi_tpu_torch.inference.trainers.nre.nre_a, sbi_tpu_torch.inference.trainers.nre.nre_b, "
+        "sbi_tpu_torch.inference.trainers.nre.nre_c, sbi_tpu_torch.inference.trainers.nre.bnre, "
+        "sbi_tpu_torch.inference.potentials.ratio_based_potential, "
+        "sbi_tpu_torch.inference.posteriors.rejection_posterior, "
+        "sbi_tpu_torch.inference.posteriors.importance_posterior, "
+        "sbi_tpu_torch.samplers.rejection, sbi_tpu_torch.samplers.importance\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'sbi_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+
+
+def test_nre_and_its_posteriors_default_to_cuda():
+    """The NRE trainers, classifier_nn's builders and the rejection and
+    importance posteriors (over a potential that names no device) raise
+    without CUDA; with device="cpu" they train and sample on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+    from sbi_tpu_torch.inference import (
+        BNRE,
+        NRE_A,
+        NRE_B,
+        NRE_C,
+        ImportanceSamplingPosterior,
+        RejectionPosterior,
+        infer,
+    )
+    from sbi_tpu_torch.neural_nets import classifier_nn
+    from sbi_tpu_torch.simulators import two_moons_simulator
+    from sbi_tpu_torch.utils import BoxUniform
+
+    prior = BoxUniform(-np.ones(2), np.ones(2), device="cpu")
+    theta = prior.sample((60,))
+    x = two_moons_simulator(theta)
+
+    def potential(t):
+        return prior.log_prob(t)
+
+    for model in ("linear", "mlp", "resnet"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            classifier_nn(model)(theta, x)
+    for cls in (NRE_A, NRE_B, NRE_C, BNRE):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(prior=prior)
+    for cls in (RejectionPosterior, ImportanceSamplingPosterior):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(potential, proposal=prior)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        infer(two_moons_simulator, prior, "NRE", 50)
+    trainer = NRE_B(prior=prior, device="cpu")
+    trainer.append_simulations(theta, x).train(max_num_epochs=1)
+    assert trainer._neural_net.device == torch.device("cpu")
+    for sample_with in ("mcmc", "rejection", "importance"):
+        posterior = trainer.build_posterior(
+            sample_with=sample_with, mcmc_parameters=dict(num_chains=4, warmup_steps=5)
+            if sample_with == "mcmc" else None)
+        samples = posterior.sample((5,), x=np.zeros(2, np.float32))
+        assert samples.shape == (5, 2) and samples.device == torch.device("cpu")
+
+
 def test_prior_on_another_device_than_the_trainer_raises():
     from sbi_tpu_torch.inference import NPE
     from sbi_tpu_torch.utils import BoxUniform

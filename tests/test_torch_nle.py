@@ -37,10 +37,12 @@ from sbi_tpu.simulators.tasks import slcp_log_likelihood as jax_slcp_log_likelih
 from sbi_tpu.utils import BoxUniform as JaxBoxUniform
 from sbi_tpu_torch.inference import (
     NLE,
+    ImportanceSamplingPosterior,
     NPE,
     SNL,
     LikelihoodBasedPotential,
     MCMCPosterior,
+    RejectionPosterior,
     VIPosteriorParameters,
     infer,
     likelihood_estimator_based_potential,
@@ -191,10 +193,12 @@ def test_tiny_nle_trains_and_samples(model):
     batched = posterior.sample_batched((15,), x=x[:3], generator=g)
     assert batched.shape == (15, 3, 2)
     assert bool(task.prior.within_support(batched.reshape(-1, 2)).all())
-    for option in (dict(sample_with="vi"), dict(sample_with="rejection"),
-                   dict(posterior_parameters=VIPosteriorParameters())):
+    for option in (dict(sample_with="vi"), dict(posterior_parameters=VIPosteriorParameters())):
         with pytest.raises(NotImplementedError, match="later slice"):
             trainer.build_posterior(**option)
+    for sample_with, cls in (("rejection", RejectionPosterior),
+                             ("importance", ImportanceSamplingPosterior)):
+        assert isinstance(trainer.build_posterior(sample_with=sample_with), cls)
 
 
 def test_append_simulations_keeps_invalid_x():

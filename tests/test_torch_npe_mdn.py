@@ -56,9 +56,11 @@ from sbi_tpu_torch.inference import (
     NPE_C,
     DirectPosterior,
     DirectPosteriorParameters,
+    ImportanceSamplingPosterior,
     MCMCPosterior,
     MCMCPosteriorParameters,
     NPE_A_Posterior,
+    RejectionPosterior,
     VectorFieldPosteriorParameters,
     VIPosteriorParameters,
     infer,
@@ -333,7 +335,14 @@ def test_build_posterior_from_parameters_dispatch():
         build(VectorFieldPosteriorParameters(), te, tprior, kind="npe")
     with pytest.raises(TypeError):
         build(object(), te, tprior, kind="npe")
-    for params, kind in ((MCMCPosteriorParameters(), "nre"), (VIPosteriorParameters(), "npe"),
+    for params, cls in ((torch_pp.RejectionPosteriorParameters(m=2.0), RejectionPosterior),
+                        (torch_pp.ImportanceSamplingPosteriorParameters(oversampling_factor=4),
+                         ImportanceSamplingPosterior)):
+        for kind in ("npe", "nle"):
+            post = build(params, te, tprior, kind=kind)
+            assert isinstance(post, cls) and post.proposal is tprior
+    assert build(params, te, tprior, kind="npe").oversampling_factor == 4
+    for params, kind in ((MCMCPosteriorParameters(), "vf"), (VIPosteriorParameters(), "npe"),
                          (torch_pp.FilteredDirectPosteriorParameters(), "npe")):
         with pytest.raises(NotImplementedError, match="later slice"):
             build(params, te, tprior, kind=kind)
