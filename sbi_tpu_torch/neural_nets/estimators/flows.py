@@ -357,13 +357,19 @@ class FlowModule(nn.Module):
             return self.embedding_net(context)
         return context.reshape(context.shape[0], -1)
 
-    def log_prob(self, x, context=None):
+    def transform_to_noise(self, x, context=None):
+        """Data -> noise through every layer; ``context`` is embedded here.
+        Returns (z, summed forward log-det)."""
         ctx = self._embed(context)
         total = x.new_zeros(x.shape[0])
         h = x
         for layer in self.layers:
             h, ldj = layer(h, ctx)
             total = total + ldj
+        return h, total
+
+    def log_prob(self, x, context=None):
+        h, total = self.transform_to_noise(x, context)
         base_lp = (-0.5 * h**2 - _LOG_SQRT_2PI).sum(-1)
         return base_lp + total
 
@@ -417,6 +423,17 @@ class FlowEstimator(ConditionalDensityEstimator):
 
     def _sample(self, num_samples, condition, generator):
         return self.net.sample(num_samples, condition, generator)
+
+    def transform_to_noise(self, input, condition) -> torch.Tensor:
+        """theta (B, D) -> the flow's base-space noise (B, D), one condition
+        row per row: the input z-scoring, then every layer forward. This is
+        the map ``LC2ST_NF``'s ``flow_inverse_transform`` wants."""
+        from .shape_handling import reshape_to_batch_event
+
+        input = reshape_to_batch_event(input, self.input_shape, device=self.device)
+        condition = reshape_to_batch_event(condition, self.condition_shape, device=self.device)
+        z, _ = self.input_transform.forward_and_log_det(input)
+        return self.net.transform_to_noise(z, self._embed_condition(condition))[0]
 
     def sample_and_log_prob_fn(self, num_samples: int, condition, generator=None):
         """Single-pass sample + log_prob in raw space: (num, B, D), (num, B)."""

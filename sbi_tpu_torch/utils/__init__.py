@@ -5,7 +5,20 @@ from .distributions import (
     MultivariateNormal,
     Uniform,
 )
-from .metrics import c2st_torch
+from .metrics import (
+    biased_mmd,
+    biased_mmd_hypothesis_test,
+    c2st,
+    c2st_torch,
+    check_c2st,
+    mmd,
+    posterior_shrinkage,
+    posterior_zscore,
+    unbiased_mmd_squared,
+    unbiased_mmd_squared_hypothesis_test,
+    wasserstein_2_squared,
+)
+from .mlp_classifier import BatchedMLPClassifier
 from .sbiutils import (
     draw_from_proposal,
     ensure_theta_batched,

@@ -37,6 +37,10 @@ degrees and stored transposed by the module itself. flax ``Conv`` kernels are
 channels last, (k, in, out) or (kh, kw, in, out), and torch's (out, in, k)
 or (out, in, kh, kw).
 
+``sklearn_mlp_to_torch`` stacks fitted sklearn ``MLPClassifier``s (their
+``coefs_`` and ``intercepts_``, numpy arrays; sklearn is not imported) into
+one ``BatchedMLPClassifier``.
+
 ``load_stacked_flax_params`` loads an ensemble's stacked parameters (each
 leaf with a leading member axis, as ``train_ensemble`` holds them in
 ``_ensemble_stacked_params``) into one estimator per member.
@@ -67,6 +71,7 @@ from ..neural_nets.estimators.flows import (
     Permutation,
     RQSCoupling,
 )
+from .mlp_classifier import ALPHA, BatchedMLPClassifier
 from .transforms import AffineTransform
 
 
@@ -250,3 +255,15 @@ def _count_leaves(tree) -> int:
     if isinstance(tree, Mapping):
         return sum(_count_leaves(v) for v in tree.values())
     return 1
+
+
+def sklearn_mlp_to_torch(clfs, device=None, dtype: torch.dtype = torch.float32) -> BatchedMLPClassifier:
+    """One ``BatchedMLPClassifier`` whose member t holds ``clfs[t]``'s
+    weights. The classifiers share one architecture and sklearn's default
+    ``alpha``, the port's ``mlp_classifier.ALPHA``."""
+    coefs = [np.stack([np.asarray(c.coefs_[l]) for c in clfs]) for l in range(len(clfs[0].coefs_))]
+    intercepts = [np.stack([np.asarray(c.intercepts_[l]) for c in clfs])
+                  for l in range(len(clfs[0].intercepts_))]
+    if any(c.alpha != ALPHA for c in clfs):
+        raise ValueError(f"sklearn_mlp_to_torch: the port's classifier has alpha {ALPHA}")
+    return BatchedMLPClassifier.from_weights(coefs, intercepts, device=device, dtype=dtype)

@@ -352,3 +352,72 @@ def test_chip_smoke_refuses_to_run_here(tmp_path):
                              capture_output=True, text=True, timeout=300)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def _module_level_imports(path):
+    """Roots imported outside any function body of ``path``."""
+    def walk(nodes):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(node, ast.Import):
+                yield from (alias.name.split(".")[0] for alias in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                yield node.module.split(".")[0]
+            yield from walk(ast.iter_child_nodes(node))
+
+    return set(walk(ast.parse(path.read_text(), filename=str(path)).body))
+
+
+def test_no_module_level_sklearn_import():
+    """sklearn is imported only inside the functions that need it (c2st's
+    classifier="rf"): the card's machine has no sklearn."""
+    offenders = [str(f.relative_to(ROOT)) for f in _port_files()
+                 if "sklearn" in _module_level_imports(f)]
+    assert offenders == []
+    metrics = ROOT / "sbi_tpu_torch" / "utils" / "metrics.py"
+    assert "sklearn" in set(_imported_roots(metrics))  # inside c2st: the check sees it
+
+
+def test_diagnostics_modules_leave_jax_and_sklearn_out():
+    code = (
+        "import sys\n"
+        "import sbi_tpu_torch.diagnostics, sbi_tpu_torch.diagnostics.sbc, "
+        "sbi_tpu_torch.diagnostics.tarp, sbi_tpu_torch.diagnostics.lc2st, "
+        "sbi_tpu_torch.diagnostics.misspecification, sbi_tpu_torch.simulators.hodgkin_huxley, "
+        "sbi_tpu_torch.utils.metrics, sbi_tpu_torch.utils.mlp_classifier, "
+        "sbi_tpu_torch.utils.params_bridge\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'sbi_tpu', 'sklearn')]\n"
+        "assert not bad, bad\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+
+
+def test_diagnostics_default_to_cuda():
+    """The HH prior and simulator, the batched classifier, c2st and LC2ST
+    given arrays raise without CUDA; with device="cpu" (or CPU tensors) they run there."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+    from sbi_tpu_torch.diagnostics import LC2ST
+    from sbi_tpu_torch.simulators import hh_prior, hodgkin_huxley
+    from sbi_tpu_torch.utils import BatchedMLPClassifier, c2st
+
+    rng = np.random.default_rng(0)
+    a, b = rng.normal(size=(40, 2)), rng.normal(size=(40, 2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hh_prior()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hodgkin_huxley(np.array([[120.0, 36.0]]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        c2st(a, b)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedMLPClassifier((4,), random_state=[0]).fit(a[None], np.zeros((1, 40)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LC2ST(a, b, a)
+    theta = hh_prior(device="cpu").sample((1,))
+    assert hodgkin_huxley(theta).device == torch.device("cpu")
+    assert c2st(a, b, device="cpu").device == torch.device("cpu")
+    lc = LC2ST(a, b, a, num_trials_null=2, device="cpu").train_under_null_hypothesis()
+    assert lc.state.clfs_null.coefs_[0].device == torch.device("cpu")
