@@ -82,7 +82,18 @@ public entry points:
   log-prob ranks), TARP, LC2ST with 100 null classifiers trained as one
   batched run (null-training seconds, classifier steps/s; a shifted
   control must be rejected), LC2ST_NF through the flow's theta -> z, and
-  the MMD misspecification test at x_o and at moved v_rest.
+  the MMD misspecification test at x_o and at moved v_rest;
+- the samplers, which launch the spline forward and inverse and the
+  backward in both directions: HMC, NUTS and jittered NUTS on
+  tests/test_mcmc.py's Gaussian and banana and on bench.py's 5-D Gaussian
+  (1,000 chains: samples/s beside the slice headline, leapfrogs and host
+  syncs a step, host syncs refused but NUTS's doubling reads), HMC and
+  NUTS through the two_moons NLE-NSF (C2ST beside the slice sampler's on
+  the same model, host ms a leapfrog, the busy share), VI (the four
+  divergences on tests/test_vi.py's Gaussian, PSIS k-hat, VI's map, steps/s
+  per q family, NLE with sample_with="vi" and q = nsf and maf beside a
+  control, amortized VI), MAP of the two_moons NPE and NLE posteriors and
+  FilteredDirectPosterior; cut in depth to its budget (depth_cuts).
 
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero. The kernel launch counters are zeroed just before the main path
@@ -262,9 +273,11 @@ SBI_TPU_NLE_TWO_MOONS = {"c2st_mean": 0.5842, "c2st": [0.5535, 0.6445, 0.5545],
                          "classifier": "sklearn", "source": "bm_results_round1.csv:6"}
 # Vector fields. tests/test_vector_field.py:18-54: the 2-D linear Gaussian
 # (shift -1, covariance 0.3 I, prior N(0, I)), 3,000 simulations, batch 100,
-# stop_after_epochs 30 (capped here at VF_MAX_EPOCHS: 250, cut from 400
+# stop_after_epochs 30 (capped here at VF_MAX_EPOCHS: 150, cut from 400
 # for the script's time limit; FMPE stopped at 338 and NPSE-VE reached 400
-# there, both reading C2ST 0.48-0.52 against the 0.62 bar), 1,000 draws at
+# there, both reading C2ST 0.48-0.52 against the 0.62 bar, 0.495 / 0.468
+# at a cap of 250 and 0.520 / 0.507 at this cap of 150, both having run
+# to it, on an H100), 1,000 draws at
 # x_o = 0 scored by C2ST against as many analytic-posterior draws, gated
 # at that test's 0.62 (0.5 + 0.12) for FMPE and NPSE-VE; log_prob of 20
 # reference draws; sample_batched over three observations in 100 steps.
@@ -279,7 +292,7 @@ SBI_TPU_NLE_TWO_MOONS = {"c2st_mean": 0.5842, "c2st": [0.5535, 0.6445, 0.5545],
 # package can train on the same inputs. bench.py:369-399's
 # diffuser_sampling: VP, theta 5-D, x 8-D, fresh weights, 500 steps, 1,024
 # samples.
-VF_SIMS, VF_BATCH, VF_PATIENCE, VF_MAX_EPOCHS, VF_DRAWS, VF_C2ST_MAX = 3_000, 100, 30, 250, 1_000, 0.62
+VF_SIMS, VF_BATCH, VF_PATIENCE, VF_MAX_EPOCHS, VF_DRAWS, VF_C2ST_MAX = 3_000, 100, 30, 150, 1_000, 0.62
 VF_BATCHED_STEPS = 100
 CNN_SIMS, CNN_L, CNN_BATCH, CNN_PATIENCE, CNN_MAX_EPOCHS, CNN_C2ST_MAX = 4_000, 32, 200, 30, 300, 0.65
 CNN_HIDDEN, CNN_RATE_DRAWS, VF_CONTROL_SHIFT_SD = 128, 1_000, 1.0
@@ -374,16 +387,101 @@ LC2ST_NULL_TRIALS, LC2ST_DRAWS_O, LC2ST_NULL_SDS, LC2ST_SHIFT, LC2ST_ALPHA = 100
 MISSPEC_VREST_SHIFTS, MISSPEC_GATED_SHIFT, MISSPEC_ALPHA = (20.0, 40.0), 40.0, 0.05
 # The diagnostics path's budget in seconds.
 DIAGNOSTICS_BUDGET_S = 180.0
+# The samplers path, cut in depth to fit its budget (SAMPLERS_DEPTH_CUTS,
+# printed in depth_cuts): each eager leapfrog and VI step costs ~1-16 ms
+# of host on the H100's machine, and at the JAX tests' sizes the path took
+# 467 s. Where a cut shortens the chains, more chains keep the JAX test's
+# number of draws. tests/test_mcmc.py's 2-D Gaussian (mean within 0.15,
+# covariance within 0.3) and banana (|E x| < 0.15, |Var x - 1| < 0.25,
+# |E y - 1| < 0.25) for run_hmc, run_nuts and run_nuts_jittered; then HMC
+# and NUTS on bench.py's 5-D Gaussian (the SLICE_* sizes and tolerances
+# above, uncut), whose rates stand beside the slice headline.
+HMC_GAUSS_CHAINS, HMC_GAUSS_SAMPLES, HMC_GAUSS_WARMUP = 400, 38, 50
+HMC_GAUSS_MEAN_ATOL, HMC_GAUSS_COV_ATOL = 0.15, 0.3
+HMC_BANANA_CHAINS, HMC_BANANA_SAMPLES, HMC_BANANA_WARMUP = 400, 100, 100
+HMC_BANANA_MEAN_X, HMC_BANANA_VAR_X, HMC_BANANA_MEAN_Y = 0.15, 0.25, 0.25
+# HMC and NUTS through nle_two_moons' NLE-NSF: NUTS_NLE_CHAINS chains per
+# observation of two_moons.npz (all three in one run through the
+# potential's batched_over_x), warmup NUTS_NLE_WARMUP, NUTS_NLE_PER_CHAIN
+# draws a chain; C2ST (c2st_torch) against as many reference draws, gated
+# on the NLE bars above and on the slice sampler's C2ST on the same model
+# at as many of its draws (its first ones) + NUTS_NLE_SLICE_MARGIN. The
+# chains start from MCMCPosterior's default inits (SIR over the prior),
+# which are already near the posterior: frozen chains pass that C2ST. So
+# the gate also asks the chains to move: the median over chains of the
+# last draw's distance from its init, in the reference posterior's sds,
+# at least NUTS_NLE_MIN_MOVE. Two controls must fail that half of the
+# gate (their C2ST is not computed): the frozen chains (the inits as
+# draws) and HMC with the potential's gradient negated, whose C2ST passes.
+# One short MCMCPosterior.sample(method="nuts") run at observation 0
+# refuses every host sync but the doublings' reads.
+NUTS_NLE_CHAINS, NUTS_NLE_WARMUP, NUTS_NLE_PER_CHAIN, NUTS_NLE_SLICE_MARGIN = 300, 15, 2, 0.05
+NUTS_NLE_MIN_MOVE = 0.12
+# VI (tests/test_vi.py): its correlated Gaussian (prior N(0, 9 I)), q = maf,
+# lr VI_LR, VI_RKL_ITERS iterations for rKL and VI_ITERS for fKL, IW and
+# alpha, VI_DRAWS draws: mean within 0.15 and covariance within 0.35 (0.3
+# and 0.6 for IW and alpha); PSIS k-hat of the rKL fit below VI_PSIS_MAX
+# over VI_PSIS_N draws (at 700 iterations it read up to 0.78 over five
+# seeds on the CPU, at 1,000 up to 0.64); its map (200 iterations)
+# within VI_MAP_ATOL of the mode (tests/test_vi_deep.py:134-141). The NLE
+# pipeline (test_vi.py:77-103): NLE with its default MAF on VI_NLE_SIMS
+# simulations of the 2-D linear Gaussian (at most VI_NLE_EPOCHS epochs;
+# the test trains to patience), sample_with="vi" with q = nsf
+# and q = maf, VI_NLE_ITERS iterations (at 200 one of four CPU fits read
+# 0.61), VI_NLE_DRAWS draws at x_o = 0 scored against the analytic
+# posterior below VI_NLE_C2ST_MAX, beside a control (the analytic
+# posterior moved 1 sd) that must reach it. The amortized recipe
+# (test_vi.py:106-130): NPE with an MDN on VI_AMORTIZED_SIMS simulations
+# (shift 0, VI_AMORTIZED_EPOCHS epochs), train_amortized over two
+# observations for VI_AMORTIZED_ITERS iterations, the q's mean within
+# VI_AMORTIZED_ATOL of the NPE posterior's at each. VI steps/s per q
+# family over VI_RATE_STEPS steps of an rKL fit.
+VI_RKL_ITERS, VI_ITERS, VI_LR, VI_DRAWS, VI_PARTICLES = 1000, 300, 2e-3, 4000, 256
+VI_PSIS_N, VI_PSIS_MAX, VI_MAP_ATOL = 2000, 0.7, 0.25
+VI_NLE_SIMS, VI_NLE_EPOCHS, VI_NLE_ITERS, VI_NLE_DRAWS, VI_NLE_C2ST_MAX = 2000, 50, 250, 1000, 0.65
+VI_AMORTIZED_SIMS, VI_AMORTIZED_EPOCHS, VI_AMORTIZED_ITERS, VI_AMORTIZED_ATOL = 1500, 40, 200, 0.3
+VI_RATE_STEPS = 15
+# MAP on the two_moons NPE and NLE at observation 0, MAP_ITERS Adam steps
+# from the best 100 of MAP_DRAWS prior draws: the potential at the MAP at
+# least the largest over MAP_DRAWS posterior draws - MAP_TOL, beside a
+# control, the best of those prior draws (where the ascent starts), which
+# must stay below that bar. FilteredDirectPosterior on the NPE:
+# FILTER_DRAWS draws at FILTER_QUANTILE.
+MAP_DRAWS, MAP_ITERS, MAP_TOL, FILTER_QUANTILE, FILTER_DRAWS = 1000, 100, 1e-3, 0.1, 1000
+SAMPLERS_DEPTH_CUTS = {
+    "hmc_nuts_exact, the Gaussian": {"chains": [50, HMC_GAUSS_CHAINS],
+                                     "warmup": [100, HMC_GAUSS_WARMUP],
+                                     "samples_per_chain": [300, HMC_GAUSS_SAMPLES]},
+    "hmc_nuts_exact, the banana": {"chains": [100, HMC_BANANA_CHAINS],
+                                   "warmup": [300, HMC_BANANA_WARMUP],
+                                   "samples_per_chain": [400, HMC_BANANA_SAMPLES]},
+    "nuts_nle_two_moons": {"chains": [100, NUTS_NLE_CHAINS], "warmup": [100, NUTS_NLE_WARMUP],
+                           "samples_per_chain": [10, NUTS_NLE_PER_CHAIN]},
+    "vi, the divergences": {"iterations_rKL": [2000, VI_RKL_ITERS],
+                            "iterations_fKL_IW_alpha": [2000, VI_ITERS]},
+    "vi, the NLE pipeline": {"nle_max_epochs": ["to patience", VI_NLE_EPOCHS],
+                             "iterations": [1500, VI_NLE_ITERS]},
+    "vi, amortized": {"iterations": [600, VI_AMORTIZED_ITERS]},
+    "map_filtered": {"map_iterations": [1000, MAP_ITERS]},
+}
+# The samplers path's budget in seconds.
+SAMPLERS_BUDGET_S = 150.0
+# nle_two_moons' slice draws per observation, cut from 5,000 with the
+# samplers path (the script read 906.5 s of 1,200 on an H100 before).
+NLE_TWO_MOONS_DRAWS = 3_000
 # Earlier paths cut in depth to keep the script inside its time limit once
 # the diagnostics path was added (the script read 825 s of 1,200 on an H100
-# without them); printed as the "depth_cuts" phase.
+# without them) and again with the samplers path (906.5 s); printed as the
+# "depth_cuts" phase.
 DEPTH_CUTS = {
     "npe_ens8": {"max_epochs": [5, ENS_EPOCHS]},
     "vf_linear_gaussian": {"max_epochs": [400, VF_MAX_EPOCHS]},
+    "nle_two_moons": {"draws_per_observation": [5_000, NLE_TWO_MOONS_DRAWS]},
     "slcp_exact_slice": {"observations": [2, SLCP_OBSERVATIONS]},
     "nle_slcp and nle_poe_slcp, the profiled run": {
         "warmup": [NLE_WARMUP, NLE_PROFILED_WARMUP],
         "samples_per_chain": [NLE_SAMPLES, NLE_PROFILED_SAMPLES]},
+    **SAMPLERS_DEPTH_CUTS,
 }
 
 
@@ -399,6 +497,21 @@ def emit(phase: str, **fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+# The wrapper's launch counters: the spline by direction, and its backward
+# by the direction it differentiates.
+COUNTERS = {"forward": "forward_launches", "inverse": "inverse_launches",
+            "backward": "backward_launches", "backward_inverse": "backward_inverse_launches"}
+
+
+def saved_launches(rqs):
+    return tuple(getattr(rqs, c) for c in COUNTERS.values())
+
+
+def restore_launches(rqs, saved):
+    for counter, value in zip(COUNTERS.values(), saved):
+        setattr(rqs, counter, value)
 
 
 # ---------------------------------------------------------------------------
@@ -557,7 +670,7 @@ def kernel_checks(torch, rqs, device, n_main, seed):
 
     worst = {False: 0.0, True: 0.0}
     backward_worst = [0.0]
-    launches = (rqs.forward_launches, rqs.inverse_launches, rqs.backward_launches)
+    launches = saved_launches(rqs)
     for inverse in (False, True):
         x, w, h, d = spline_inputs(torch, n_main, 10, device, gen)
         worst[inverse] = max(worst[inverse], run("main_strided", x, w, h, d, inverse))
@@ -602,8 +715,12 @@ def kernel_checks(torch, rqs, device, n_main, seed):
                 xk, wk, hk, dk = spline_inputs(torch, n, K, device, gen, strided=strided)
                 name = f"K={K}_{'one_span' if strided else 'separate'}"
                 worst[inverse] = max(worst[inverse], run(name, xk, wk, hk, dk, inverse))
+        # VI's q="nsf" (K = 8, the smallest tile at n = 256): the inputs
+        # vi_q_timings times.
+        xq, (wq, hq, dq), _, _ = vi_q_inputs(torch, device, seed)
+        worst[inverse] = max(worst[inverse], run("K=8_vi_q", xq, wq, hq, dq, inverse))
     # Check launches are not launches of the main path.
-    rqs.forward_launches, rqs.inverse_launches, rqs.backward_launches = launches
+    restore_launches(rqs, launches)
     return results, worst, backward_worst[0]
 
 
@@ -613,7 +730,7 @@ def stress_check(torch, rqs, device, n, seed):
     the knots)."""
     gen = torch.Generator(device=device).manual_seed(seed + 3)
     consts = (rqs.DEFAULT_MIN_BIN_WIDTH, rqs.DEFAULT_MIN_BIN_HEIGHT, rqs.DEFAULT_MIN_DERIVATIVE)
-    launches = (rqs.forward_launches, rqs.inverse_launches, rqs.backward_launches)
+    launches = saved_launches(rqs)
     out = {}
     for inverse in (False, True):
         x, w, h, d = spline_inputs(torch, n, 10, device, gen, std=1.0)
@@ -625,7 +742,7 @@ def stress_check(torch, rqs, device, n, seed):
                        f"{STRESS_FACTOR} x the plain version's: {grad_errs}")
         out["inverse" if inverse else "forward"] = {**errs, "gradients": grad_errs,
                                                     "grad_near_knot": near}
-    rqs.forward_launches, rqs.inverse_launches, rqs.backward_launches = launches
+    restore_launches(rqs, launches)
     return out
 
 
@@ -760,16 +877,20 @@ def backward_bound_ms(n, K):
 
 
 def backward_timings(torch, rqs, device, seed):
-    """The backward kernel alone at ``BACKWARD_SIZES`` (K = 10, the forward
-    direction's gradient, as training runs it), warm and cold L2, and its
-    plain version (``rational_quadratic_spline_vjp_plain``) at each size.
-    The n = 300,000 figures also stand under ``ms`` and ``plain_ms``."""
+    """The backward kernel alone at ``BACKWARD_SIZES`` (K = 10), for the
+    forward direction's gradient (as training, HMC, NUTS and MAP run it,
+    ``sizes``) and the inverse direction's (as VI's reparameterised draws
+    run it, ``inverse_sizes``), warm and cold L2, and its plain version
+    (``rational_quadratic_spline_vjp_plain``) at each size. The n = 300,000
+    figures also stand under ``ms``, ``plain_ms`` and ``bound_ms`` (forward
+    direction) and ``ms_inverse``, ``plain_ms_inverse`` and
+    ``bound_ms_inverse``."""
     gen = torch.Generator(device=device).manual_seed(seed + 4)
     flush_buf = torch.empty(FLUSH_BYTES // 4, device=device)
     flush = lambda: flush_buf.fill_(1.0)
     consts = (3.0, rqs.DEFAULT_MIN_BIN_WIDTH, rqs.DEFAULT_MIN_BIN_HEIGHT, rqs.DEFAULT_MIN_DERIVATIVE)
-    launches = rqs.backward_launches
-    out = {"K": 10, "sizes": {}}
+    launches = saved_launches(rqs)
+    out = {"K": 10, "sizes": {}, "inverse_sizes": {}}
     with torch.no_grad():
         for rows, dims in BACKWARD_SIZES:
             p = PARAM_STD * torch.randn(rows, dims, 29, generator=gen, device=device)
@@ -777,23 +898,69 @@ def backward_timings(torch, rqs, device, seed):
             gy = torch.randn(rows, dims, generator=gen, device=device)
             gl = torch.randn(rows, dims, generator=gen, device=device)
             args = (x, p[..., :10], p[..., 10:20], p[..., 20:], gy, gl)
-            call = lambda: rqs._launch_backward(*args, (True,) * 4, False, *consts)
-            plain = lambda: rqs.rational_quadratic_spline_vjp_plain(*args, False, *consts)
             n = rows * dims
             bound, by = backward_bound_ms(n, 10)
-            out["sizes"][str(n)] = {
-                "bound_ms": bound, "bound_by": by,
-                "warm": {"device_ms": device_ms(torch, call, match="rqs_backward"),
-                         "time_ms": time_ms(torch, call)},
-                "cold": {"device_ms": device_ms(torch, call, before=flush, match="rqs_backward"),
-                         "time_ms": time_ms(torch, call, before=flush)},
-                "plain_ms": device_ms(torch, plain), "plain_call_ms": time_ms(torch, plain),
-            }
+            for inverse, key in ((False, "sizes"), (True, "inverse_sizes")):
+                call = lambda: rqs._launch_backward(*args, (True,) * 4, inverse, *consts)
+                plain = lambda: rqs.rational_quadratic_spline_vjp_plain(*args, inverse, *consts)
+                out[key][str(n)] = {
+                    "bound_ms": bound, "bound_by": by,
+                    "warm": {"device_ms": device_ms(torch, call, match="rqs_backward"),
+                             "time_ms": time_ms(torch, call)},
+                    "cold": {"device_ms": device_ms(torch, call, before=flush, match="rqs_backward"),
+                             "time_ms": time_ms(torch, call, before=flush)},
+                    "plain_ms": device_ms(torch, plain), "plain_call_ms": time_ms(torch, plain),
+                }
     n = max(r * c for r, c in BACKWARD_SIZES)
-    big = out["sizes"][str(n)]
+    big, big_inv = out["sizes"][str(n)], out["inverse_sizes"][str(n)]
     out.update(n=n, bound_ms=big["bound_ms"], bound_by=big["bound_by"],
-               ms=big["warm"]["device_ms"], plain_ms=big["plain_ms"])
-    rqs.backward_launches = launches  # timing launches are not the main path's
+               ms=big["warm"]["device_ms"], plain_ms=big["plain_ms"],
+               bound_ms_inverse=big_inv["bound_ms"], ms_inverse=big_inv["warm"]["device_ms"],
+               plain_ms_inverse=big_inv["plain_ms"])
+    restore_launches(rqs, launches)  # timing launches are not the main path's
+    return out
+
+
+VI_Q_BINS = 8  # the spline bins of VI's q="nsf"
+
+
+def vi_q_inputs(torch, device, seed):
+    """The spline's inputs at the size of one layer of VI's ``q="nsf"`` on
+    the 2-D targets: a coupling that transforms one dimension of
+    ``VI_PARTICLES`` particles, in its (VI_PARTICLES, 1, 3K-1) layout (row
+    stride 23). Returns x, (w, h, d) and two upstream gradients."""
+    K = VI_Q_BINS
+    gen = torch.Generator(device=device).manual_seed(seed + 6)
+    p = PARAM_STD * torch.randn(VI_PARTICLES, 1, 3 * K - 1, generator=gen, device=device)
+    x = 1.5 * torch.randn(VI_PARTICLES, 1, generator=gen, device=device)
+    gy, gl = (torch.randn(VI_PARTICLES, 1, generator=gen, device=device) for _ in range(2))
+    return x, (p[..., :K], p[..., K:2 * K], p[..., 2 * K:]), gy, gl
+
+
+def vi_q_timings(torch, rqs, device, seed):
+    """The generic-K instances that VI's ``q="nsf"`` runs (K = 8) on
+    ``vi_q_inputs`` (which ``kernel_checks`` holds against the plain
+    version): the spline in both directions and the backward of each, warm
+    L2: device ms, call ms and bound."""
+    K = VI_Q_BINS
+    consts = (3.0, rqs.DEFAULT_MIN_BIN_WIDTH, rqs.DEFAULT_MIN_BIN_HEIGHT, rqs.DEFAULT_MIN_DERIVATIVE)
+    launches = saved_launches(rqs)
+    x, wh, gy, gl = vi_q_inputs(torch, device, seed)
+    n = VI_PARTICLES
+    out = {"K": K, "n": n}
+    with torch.no_grad():
+        for inverse in (False, True):
+            direction = "inverse" if inverse else "forward"
+            spline = lambda: rqs.rational_quadratic_spline(x, *wh, inverse)
+            backward = lambda: rqs._launch_backward(x, *wh, gy, gl, (True,) * 4, inverse, *consts)
+            bound, by = spline_bound_ms(n, K)
+            bwd_bound, bwd_by = backward_bound_ms(n, K)
+            out[direction] = {"device_ms": device_ms(torch, spline, match="rqs"),
+                              "time_ms": time_ms(torch, spline), "bound_ms": bound, "bound_by": by}
+            out[f"backward_{direction}"] = {
+                "device_ms": device_ms(torch, backward, match="rqs_backward"),
+                "time_ms": time_ms(torch, backward), "bound_ms": bwd_bound, "bound_by": bwd_by}
+    restore_launches(rqs, launches)
     return out
 
 
@@ -1241,6 +1408,7 @@ def slice_gaussian(torch, fsm, device, seed):
     check(bool(torch.isfinite(draws).all()), "non-finite slice draws")
     check(float(mean.abs().max()) < SLICE_MEAN_ATOL, f"slice mean {mean.tolist()}")
     check(bool(torch.allclose(emp_cov, cov, atol=SLICE_COV_ATOL)), f"slice covariance {emp_cov}")
+    return SLICE_CHAINS * SLICE_SAMPLES / seconds
 
 
 def slcp_exact_slice(torch, fsm, device, seed, num_obs=SLCP_OBSERVATIONS):
@@ -1357,11 +1525,12 @@ def nle_slcp(torch, rqs, fsm, device, seed, num_sims=10_000, epochs=3):
 
 
 def nle_two_moons(torch, rqs, device, seed, num_sims=10_000, max_epochs=60, num_chains=100,
-                  warmup=100, num_samples=5_000):
+                  warmup=100, num_samples=NLE_TWO_MOONS_DRAWS):
     """two_moons NLE-NSF to early stopping (at most ``max_epochs``), then
     ``num_samples`` draws of ``num_chains`` slice chains per observation of
     ``two_moons.npz`` and a C2ST against as many of its reference samples.
-    Returns the posterior."""
+    Returns the posterior and the draws per observation (the samplers path
+    scores HMC and NUTS on the same model beside them)."""
     import warnings
 
     from sbi_tpu_torch.inference import NLE, simulate_for_sbi
@@ -1379,10 +1548,11 @@ def nle_two_moons(torch, rqs, device, seed, num_sims=10_000, max_epochs=60, num_
     posterior = inference.build_posterior(
         mcmc_parameters=dict(num_chains=num_chains, warmup_steps=warmup))
     observations, references = reference_posteriors("two_moons")
-    scores, sample_s = [], []
+    scores, sample_s, draws = [], [], []
     for x_o, ref in zip(observations, references):
         samples, t = sync_time(torch, lambda: posterior.sample(
             (num_samples,), x=torch.as_tensor(x_o, device=device), generator=gen))
+        draws.append(samples)
         check(bool(torch.isfinite(samples).all()), "non-finite NLE posterior sample")
         check(bool(task.prior.within_support(samples).all()), "NLE sample outside the prior")
         ref = torch.as_tensor(ref[:num_samples], device=device)
@@ -1399,7 +1569,7 @@ def nle_two_moons(torch, rqs, device, seed, num_sims=10_000, max_epochs=60, num_
          c2st_bar={"mean": NLE_C2ST_MEAN_MAX, "each": NLE_C2ST_EACH_MAX},
          sbi_tpu_reference=SBI_TPU_NLE_TWO_MOONS)
     check(mean <= NLE_C2ST_MEAN_MAX and max(scores) <= NLE_C2ST_EACH_MAX, f"NLE two_moons C2ST {scores}")
-    return posterior
+    return {"posterior": posterior, "draws": draws}
 
 
 def mcmc_batched(torch, rqs, device, seed, posterior, npe, num_obs=8, num_samples=1_000,
@@ -1506,7 +1676,7 @@ def ensemble_merge(torch, rqs, device, seed):
     p = PARAM_STD * torch.randn(K, rows, dims, 29, generator=gen, device=device)
     gy = torch.randn(K, rows, dims, generator=gen, device=device)
     gl = torch.randn(K, rows, dims, generator=gen, device=device)
-    saved = (rqs.forward_launches, rqs.inverse_launches, rqs.backward_launches)
+    saved = saved_launches(rqs)
 
     def spline(inverse):
         return lambda x_, p_: rqs.rational_quadratic_spline(
@@ -1519,7 +1689,7 @@ def ensemble_merge(torch, rqs, device, seed):
         return torch.func.grad(f, argnums=(0, 1))
 
     def counts():
-        return rqs.forward_launches, rqs.inverse_launches, rqs.backward_launches
+        return saved_launches(rqs)  # forward, inverse, backward of each
 
     out = {}
     with recorded_launches(rqs) as loads:
@@ -1531,11 +1701,11 @@ def ensemble_merge(torch, rqs, device, seed):
             c1 = counts()
             gx_v, gp_v = torch.func.vmap(grad_of(inverse))(x, p, gy, gl)
             c2 = counts()
-            spline_at = 1 if inverse else 0
+            spline_at, backward_at = (1, 3) if inverse else (0, 2)
             check(c1[spline_at] - c0[spline_at] == 1 and sum(c1) - sum(c0) == 1,
                   f"vmapped {direction} call: launches {c0} -> {c1}")
-            check(c2[spline_at] - c1[spline_at] == 1 and c2[2] - c1[2] == 1 and sum(c2) - sum(c1) == 2,
-                  f"vmapped {direction} grad: launches {c1} -> {c2}")
+            check(c2[spline_at] - c1[spline_at] == 1 and c2[backward_at] - c1[backward_at] == 1
+                  and sum(c2) - sum(c1) == 2, f"vmapped {direction} grad: launches {c1} -> {c2}")
             with torch.no_grad():
                 sep = [spline(inverse)(x[k], p[k]) for k in range(K)]
             y_s, ld_s = torch.stack([a for a, _ in sep]), torch.stack([b for _, b in sep])
@@ -1562,8 +1732,9 @@ def ensemble_merge(torch, rqs, device, seed):
                                            "grad_max_abs_err": _grad_errors(torch, got, want, far),
                                            "grad_near_knot": int((~far).sum())},
                               "launches_per_vmapped_call": c1[spline_at] - c0[spline_at],
-                              "launches_per_vmapped_grad_call": {"spline": c2[spline_at] - c1[spline_at],
-                                                                 "backward": c2[2] - c1[2]}}
+                              "launches_per_vmapped_grad_call": {
+                                  "spline": c2[spline_at] - c1[spline_at],
+                                  "backward": c2[backward_at] - c1[backward_at]}}
     check(all(load == "one_span" for _, n, load in loads if n == K * rows * dims),
           f"merged launches took the strided tile load: {loads}")
 
@@ -1586,7 +1757,7 @@ def ensemble_merge(torch, rqs, device, seed):
         merged_grad_call_ms=time_ms(torch, lambda: vgrad(x, p, gy, gl)),
         separate_grad_calls_ms=time_ms(torch, lambda: [grad_of(False)(x[k], p[k], gy[k], gl[k])
                                                         for k in range(K)]))
-    rqs.forward_launches, rqs.inverse_launches, rqs.backward_launches = saved
+    restore_launches(rqs, saved)
     emit("ensemble_merge", shape=[K, rows, dims, 29], tile_load=sorted(set(l for _, _, l in loads)),
          tolerance={"values_and_gradients_vs_separate_calls": "bitwise",
                     "vs_plain": "as kernel_vs_plain"}, **out, timing=timing)
@@ -2915,6 +3086,463 @@ def diagnostics_phases(torch, device, seed):
     check(seconds <= DIAGNOSTICS_BUDGET_S, f"the diagnostics path took {seconds:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# The remaining samplers and posteriors: HMC, NUTS, VI, MAP, filtering
+# ---------------------------------------------------------------------------
+
+
+class HmcCounts:
+    """Counts the leapfrog steps of HMC and NUTS (``hmc._leapfrog1``, one
+    potential and gradient evaluation of every chain) and NUTS's host syncs
+    (``hmc._all_done``, one per doubling after the first) in a block, and
+    keeps every step's acceptance probabilities (C,) on the device. With
+    ``strict``, every other host sync in the block raises."""
+
+    def __init__(self, torch, hmc, strict=False):
+        self.torch, self.hmc, self.strict = torch, hmc, strict
+        self.leapfrogs = self.syncs = 0
+        self.alphas = []
+
+    def __enter__(self):
+        hmc, torch = self.hmc, self.torch
+        self._orig = (hmc._leapfrog1, hmc._all_done)
+        self._makers = (hmc._make_hmc_step, hmc._make_nuts_step)
+        leapfrog, all_done = self._orig
+
+        def recorded(make):
+            def make_recorded(*args, **kwargs):
+                step = make(*args, **kwargs)
+
+                def step_recorded(*step_args):
+                    state, alphas = step(*step_args)
+                    self.alphas.append(alphas)
+                    return state, alphas
+                return step_recorded
+            return make_recorded
+
+        def counted_leapfrog(*args):
+            self.leapfrogs += 1
+            return leapfrog(*args)
+
+        def counted_sync(done):
+            self.syncs += 1
+            if self.strict:
+                torch.cuda.set_sync_debug_mode(0)
+            try:
+                return all_done(done)
+            finally:
+                if self.strict:
+                    torch.cuda.set_sync_debug_mode("error")
+
+        hmc._leapfrog1, hmc._all_done = counted_leapfrog, counted_sync
+        hmc._make_hmc_step, hmc._make_nuts_step = (recorded(m) for m in self._makers)
+        if self.strict:
+            torch.cuda.set_sync_debug_mode("error")
+        return self
+
+    def __exit__(self, *exc):
+        if self.strict:
+            self.torch.cuda.set_sync_debug_mode(0)
+        self.hmc._leapfrog1, self.hmc._all_done = self._orig
+        self.hmc._make_hmc_step, self.hmc._make_nuts_step = self._makers
+        return False
+
+    def acceptance(self):
+        """Each chain's mean acceptance over the block's steps: mean,
+        10% quantile and minimum over the chains."""
+        by_chain = self.torch.stack(self.alphas).mean(0)
+        return {"mean": float(by_chain.mean()), "q10": float(self.torch.quantile(by_chain, 0.1)),
+                "min": float(by_chain.min())}
+
+    def fields(self, seconds, steps):
+        return {"leapfrogs": self.leapfrogs, "host_syncs": self.syncs,
+                "leapfrogs_per_step": self.leapfrogs / steps, "host_syncs_per_step": self.syncs / steps,
+                "host_ms_per_leapfrog": seconds / max(self.leapfrogs, 1) * 1e3,
+                "acceptance_by_chain": self.acceptance()}
+
+
+def hmc_nuts_exact(torch, hmc, device, seed):
+    """HMC, NUTS and jittered NUTS on tests/test_mcmc.py's Gaussian and
+    banana at its sizes and tolerances, then HMC and NUTS on bench.py's 5-D
+    Gaussian (1,000 chains): a short strict run (no host sync but NUTS's
+    doubling reads), then a timed one. Returns the 5-D rates."""
+    from sbi_tpu_torch.samplers.mcmc import run_hmc, run_nuts, run_nuts_jittered
+
+    gen = torch.Generator(device=device).manual_seed(seed + 120)
+    mean = torch.tensor([1.0, -2.0], device=device)
+    cov = torch.tensor([[1.0, 0.5], [0.5, 2.0]])
+    prec = torch.linalg.inv(cov).to(device)
+
+    def gaussian(th):
+        d = th - mean
+        return -0.5 * ((d @ prec) * d).sum(-1)
+
+    def banana(th):
+        x, y = th[:, 0], th[:, 1]
+        return -0.5 * x**2 - 0.5 * (y - x**2) ** 2 / 0.1
+
+    runners = {"hmc": run_hmc, "nuts": run_nuts, "nuts_jittered": run_nuts_jittered}
+    results = []
+    for name, runner in runners.items():
+        for target, logp, chains, samples, warmup in (
+                ("gaussian", gaussian, HMC_GAUSS_CHAINS, HMC_GAUSS_SAMPLES, HMC_GAUSS_WARMUP),
+                ("banana", banana, HMC_BANANA_CHAINS, HMC_BANANA_SAMPLES, HMC_BANANA_WARMUP)):
+            inits = torch.randn(chains, 2, generator=gen, device=device)
+            with HmcCounts(torch, hmc) as counts:
+                draws, seconds = sync_time(torch, lambda: runner(
+                    logp, inits, num_samples=samples, warmup_steps=warmup, generator=gen))
+            flat = draws.reshape(-1, 2)
+            check(tuple(draws.shape) == (samples, chains, 2) and bool(torch.isfinite(flat).all()),
+                  f"{name} on the {target}: draws {tuple(draws.shape)}")
+            if target == "gaussian":
+                errors = {"mean": float((flat.mean(0) - mean).abs().max()),
+                          "cov": float((torch.cov(flat.T).cpu() - cov).abs().max())}
+                ok = errors["mean"] < HMC_GAUSS_MEAN_ATOL and errors["cov"] < HMC_GAUSS_COV_ATOL
+            else:
+                errors = {"mean_x": float(flat[:, 0].mean().abs()),
+                          "var_x": float((flat[:, 0].var(correction=0) - 1.0).abs()),
+                          "mean_y": float((flat[:, 1].mean() - 1.0).abs())}
+                ok = (errors["mean_x"] < HMC_BANANA_MEAN_X and errors["var_x"] < HMC_BANANA_VAR_X
+                      and errors["mean_y"] < HMC_BANANA_MEAN_Y)
+            results.append({"sampler": name, "target": target, "chains": chains, "samples": samples,
+                            "warmup": warmup, "seconds": seconds, "errors": errors, "ok": ok,
+                            **counts.fields(seconds, samples + warmup)})
+            check(ok, f"{name} on the {target}: {errors}")
+
+    cov5 = SLICE_RHO * torch.ones(SLICE_DIM, SLICE_DIM) + (1 - SLICE_RHO) * torch.eye(SLICE_DIM)
+    prec5 = torch.linalg.inv(cov5).to(device)
+
+    def gaussian5(t):
+        return -0.5 * ((t @ prec5) * t).sum(-1)
+
+    inits = torch.randn(SLICE_CHAINS, SLICE_DIM, generator=gen, device=device)
+    rates = {}
+    for name in ("hmc", "nuts"):
+        with HmcCounts(torch, hmc, strict=device.type == "cuda") as strict:
+            runners[name](gaussian5, inits, num_samples=5, warmup_steps=5, generator=gen)
+        with HmcCounts(torch, hmc) as counts:
+            draws, seconds = sync_time(torch, lambda: runners[name](
+                gaussian5, inits, num_samples=SLICE_SAMPLES, warmup_steps=SLICE_WARMUP,
+                generator=gen))
+        flat = draws.reshape(-1, SLICE_DIM)
+        mean_err = float(flat.mean(0).abs().max())
+        cov_err = float((torch.cov(flat.T).cpu() - cov5).abs().max())
+        rates[f"{name}_samples_per_sec_1k_chains"] = SLICE_CHAINS * SLICE_SAMPLES / seconds
+        results.append({"sampler": name, "target": "gaussian_5d_rho_0.5", "chains": SLICE_CHAINS,
+                        "samples": SLICE_SAMPLES, "warmup": SLICE_WARMUP, "seconds": seconds,
+                        "errors": {"mean": mean_err, "cov": cov_err},
+                        "strict_run_host_syncs": strict.syncs,
+                        **counts.fields(seconds, SLICE_SAMPLES + SLICE_WARMUP)})
+        check(bool(torch.isfinite(flat).all()) and mean_err < SLICE_MEAN_ATOL
+              and cov_err < SLICE_COV_ATOL, f"{name} on the 5-D Gaussian: {mean_err}, {cov_err}")
+    emit("hmc_nuts_exact", runs=results, **rates)
+    return rates
+
+
+def nuts_nle_two_moons(torch, rqs, hmc, device, seed, nle):
+    """HMC and NUTS through nle_two_moons' NLE-NSF (``nle``: its posterior
+    and slice draws), all three observations of two_moons.npz in one run
+    each; C2ST beside the slice sampler's on the same model, and the
+    chains' moves from their inits, beside two controls whose moves must
+    fall short (frozen chains, and HMC on a negated gradient). Then one short
+    ``MCMCPosterior.sample(method="nuts")`` with every host sync but the
+    doublings' refused, and a profiled short run: the device-busy share."""
+    from sbi_tpu_torch.samplers.mcmc import run_hmc, run_nuts
+    from sbi_tpu_torch.utils import c2st_torch
+    from sbi_tpu_torch.utils.transforms import transformed_potential
+
+    class NegatedGradient(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, theta):
+            return theta.clone()
+
+        @staticmethod
+        def backward(ctx, grad):
+            return -grad
+
+    gen = torch.Generator(device=device).manual_seed(seed + 125)
+    posterior, slice_draws = nle["posterior"], nle["draws"]
+    observations, references = reference_posteriors("two_moons")
+    xs = torch.as_tensor(observations, device=device)
+    B, C, S, W = xs.shape[0], NUTS_NLE_CHAINS, NUTS_NLE_PER_CHAIN, NUTS_NLE_WARMUP
+    n = C * S
+    pot, tf = posterior.potential_fn, posterior.theta_transform
+    inits = []
+    for x_o in xs:
+        pot.set_x(x_o[None])
+        inits.append(posterior._get_initial_params(C, gen))
+    inits_u = torch.cat(inits)
+    pot_u = transformed_potential(pot.batched_over_x(xs, C), tf)
+    refs = [torch.as_tensor(r[:n], device=device) for r in references]
+    ref_sds = torch.stack([r.std(0) for r in refs])  # (B, 2)
+    init_theta = tf.inverse(inits_u).reshape(B, C, 2)
+    slice_scores = [float(c2st_torch(d[:n], r, generator=gen)) for d, r in zip(slice_draws, refs)]
+    slice_mean = sum(slice_scores) / B
+
+    def moved(draws):
+        """The median and 10% quantile of the chains' moves from their
+        inits to their last draw (draws (S, B, C, 2)), in reference sds."""
+        moves = ((draws[-1] - init_theta) / ref_sds[:, None]).norm(dim=-1)
+        move = float(moves.median())
+        return move >= NUTS_NLE_MIN_MOVE, {"move_median": move,
+                                           "move_q10": float(torch.quantile(moves.flatten(), 0.1))}
+
+    def scored(draws):
+        """C2ST per observation and the moves; whether the draws pass."""
+        scores = [float(c2st_torch(draws[:, b].reshape(-1, 2), refs[b], generator=gen))
+                  for b in range(B)]
+        mean = sum(scores) / B
+        ok, moves = moved(draws)
+        ok = ok and (mean <= min(slice_mean + NUTS_NLE_SLICE_MARGIN, NLE_C2ST_MEAN_MAX)
+                     and max(scores) <= NLE_C2ST_EACH_MAX)
+        return ok, {"c2st": scores, "c2st_mean": mean, **moves, "passes_gate": ok}
+
+    def sampled(runner, potential, score=scored):
+        counts0 = saved_launches(rqs)
+        with HmcCounts(torch, hmc) as counts:
+            draws_u, seconds = sync_time(torch, lambda: runner(
+                potential, inits_u, num_samples=S, warmup_steps=W, generator=gen))
+        launched = {k: a - b for k, a, b in zip(COUNTERS, saved_launches(rqs), counts0)}
+        draws = tf.inverse(draws_u.reshape(-1, 2)).reshape(S, B, C, 2)
+        check(bool(torch.isfinite(draws).all()) and bool(
+            posterior.proposal.within_support(draws.reshape(-1, 2)).all()),
+            "draws through the NLE: non-finite or outside the prior")
+        ok, fields = score(draws)
+        return ok, {"seconds": seconds, **fields, "samples_per_sec": B * n / seconds,
+                    "launches": launched, **counts.fields(seconds, S + W)}
+
+    results = {}
+    for name, runner in (("hmc", run_hmc), ("nuts", run_nuts)):
+        ok, results[name] = sampled(runner, pot_u)
+        launched = results[name]["launches"]
+        check(launched["forward"] > 0 and launched["backward"] > 0,
+              f"{name} through the NLE bypassed a kernel: {launched}")
+        check(ok, f"{name} through the NLE: {results[name]} against the slice sampler's "
+                  f"C2ST {slice_scores}")
+    frozen_ok, frozen = moved(init_theta[None])
+    negated_ok, negated = sampled(run_hmc, lambda th: pot_u(NegatedGradient.apply(th)), moved)
+    check(not frozen_ok and not negated_ok,
+          f"a control moved as far as the gate asks: frozen chains {frozen}, negated "
+          f"gradient {negated}")
+
+    x0 = xs[0]
+    with HmcCounts(torch, hmc, strict=device.type == "cuda") as strict:
+        user = posterior.sample((C,), x=x0, generator=gen, method="nuts", warmup_steps=3)
+    check(tuple(user.shape) == (C, 2) and bool(torch.isfinite(user).all())
+          and bool(posterior.proposal.within_support(user).all()), "MCMCPosterior NUTS draws")
+    wall, busy, fwd_s, bwd_s, n_ops = profile_shares(torch, lambda: run_nuts(
+        pot_u, inits_u, num_samples=1, warmup_steps=2, generator=gen))
+    emit("nuts_nle_two_moons", chains_per_observation=C, observations=B, warmup=W,
+         samples_per_chain=S, draws_per_observation=n, slice_c2st=slice_scores,
+         slice_c2st_mean=slice_mean, margin=NUTS_NLE_SLICE_MARGIN,
+         c2st_bar={"mean": NLE_C2ST_MEAN_MAX, "each": NLE_C2ST_EACH_MAX},
+         inits="MCMCPosterior's default (SIR over the prior)", move_bar=NUTS_NLE_MIN_MOVE,
+         **results, controls={"frozen_chains": frozen, "hmc_negated_gradient": negated},
+         mcmc_posterior_nuts={"chains": C, "warmup": 3, "host_syncs": strict.syncs,
+                              "leapfrogs": strict.leapfrogs},
+         profiled_run={"warmup": 2, "samples_per_chain": 1, "wall_s": wall, "device_busy_s": busy,
+                       "device_busy_share": busy / wall, "device_ops": n_ops,
+                       "spline_forward_s": fwd_s, "spline_backward_s": bwd_s})
+
+
+def vi_gaussian_posterior(torch, device, vi_method="rKL", q="maf"):
+    """tests/test_vi.py's target as a VIPosterior."""
+    from sbi_tpu_torch.inference import VIPosterior
+    from sbi_tpu_torch.inference.potentials.base_potential import CustomPotentialWrapper
+    from sbi_tpu_torch.utils import MultivariateNormal
+
+    mean = torch.tensor([0.8, -1.2], device=device)
+    prec = torch.linalg.inv(torch.tensor([[1.0, 0.6], [0.6, 1.5]])).to(device)
+
+    def potential(theta):
+        d = theta - mean
+        return -0.5 * ((d @ prec) * d).sum(-1)
+
+    prior = MultivariateNormal(torch.zeros(2, device=device),
+                               covariance_matrix=9.0 * torch.eye(2, device=device), device=device)
+    return VIPosterior(CustomPotentialWrapper(potential, prior=prior, device=device), prior=prior,
+                       q=q, vi_method=vi_method)
+
+
+def vi_phase(torch, device, seed):
+    """The four divergences on tests/test_vi.py's Gaussian, PSIS and map of
+    the rKL fit, VI steps/s per q family, the NLE pipeline with q = nsf and
+    q = maf beside a control, and the amortized recipe."""
+    import warnings
+
+    from sbi_tpu_torch.inference import NLE, NPE
+    from sbi_tpu_torch.simulators.linear_gaussian import linear_gaussian
+    from sbi_tpu_torch.utils import MultivariateNormal, c2st_torch
+
+    gen = torch.Generator(device=device).manual_seed(seed + 130)
+    mean = torch.tensor([0.8, -1.2])
+    cov = torch.tensor([[1.0, 0.6], [0.6, 1.5]])
+    fits, posteriors = {}, {}
+    for method in ("rKL", "fKL", "IW", "alpha"):
+        vi = posteriors[method] = vi_gaussian_posterior(torch, device, method)
+        iters = VI_RKL_ITERS if method == "rKL" else VI_ITERS
+        _, seconds = sync_time(torch, lambda: vi.train(max_num_iters=iters, learning_rate=VI_LR,
+                                                       generator=gen))
+        samples = vi.sample((VI_DRAWS,), generator=gen)
+        m_err = float((samples.mean(0).cpu() - mean).abs().max())
+        c_err = float((torch.cov(samples.T).cpu() - cov).abs().max())
+        tol = (0.3, 0.6) if method in ("IW", "alpha") else (0.15, 0.35)
+        fits[method] = {"iterations": iters, "seconds": seconds, "steps_per_s": iters / seconds,
+                        "mean_err": m_err,
+                        "cov_err": c_err, "tolerance": tol, "final_loss": float(vi._losses[-1])}
+        check(bool(torch.isfinite(samples).all()) and m_err < tol[0] and c_err < tol[1],
+              f"VI {method}: mean error {m_err}, covariance error {c_err}")
+    k_hat = posteriors["rKL"].evaluate(N=VI_PSIS_N, generator=gen)
+    theta_map = posteriors["rKL"].map(num_iter=200, generator=gen)
+    map_err = float((theta_map.cpu() - mean).abs().max())
+    check(k_hat < VI_PSIS_MAX, f"PSIS k-hat {k_hat}")
+    check(map_err < VI_MAP_ATOL, f"VIPosterior.map off the mode by {map_err}")
+
+    rates = {}
+    for q in ("maf", "nsf", "gaussian", "gaussian_diag", "nice"):
+        vi = vi_gaussian_posterior(torch, device, "rKL", q)
+        vi.train(max_num_iters=5, generator=gen)  # builds q
+        _, seconds = sync_time(torch, lambda: vi.train(max_num_iters=VI_RATE_STEPS, generator=gen))
+        rates[q] = VI_RATE_STEPS / seconds
+
+    prior, simulator, truth = linear_gaussian_task(torch, device, 2)
+    theta = prior.sample((VI_NLE_SIMS,), generator=gen)
+    nle = NLE(prior=prior)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, t_nle = sync_time(torch, lambda: nle.append_simulations(
+            theta, simulator(theta, generator=gen)).train(max_num_epochs=VI_NLE_EPOCHS,
+                                                          generator=gen))
+    x_o = torch.zeros(1, 2, device=device)
+    ref = truth(x_o).sample((VI_NLE_DRAWS,), generator=gen)
+    post_sd = math.sqrt(0.3 / 1.3)
+    control = float(c2st_torch(truth(x_o).sample((VI_NLE_DRAWS,), generator=gen) + post_sd, ref,
+                               generator=gen))
+    pipeline = {}
+    for q in ("nsf", "maf"):
+        post = nle.build_posterior(sample_with="vi", vi_parameters=dict(q=q)).set_default_x(x_o)
+        _, seconds = sync_time(torch, lambda: post.train(max_num_iters=VI_NLE_ITERS, generator=gen))
+        samples = post.sample((VI_NLE_DRAWS,), generator=gen)
+        check(bool(torch.isfinite(samples).all()), f"non-finite VI draws (q={q})")
+        pipeline[q] = {"seconds": seconds, "steps_per_s": VI_NLE_ITERS / seconds,
+                       "c2st": float(c2st_torch(samples, ref, generator=gen))}
+    check(all(r["c2st"] < VI_NLE_C2ST_MAX for r in pipeline.values()) and control >= VI_NLE_C2ST_MAX,
+          f"NLE + VI C2ST {pipeline} against {VI_NLE_C2ST_MAX}; the control {control}")
+
+    prior_a = MultivariateNormal(torch.zeros(2, device=device), covariance_matrix=torch.eye(
+        2, device=device), device=device)
+    theta = prior_a.sample((VI_AMORTIZED_SIMS,), generator=gen)
+    x = linear_gaussian(theta, torch.zeros(2, device=device), 0.3 * torch.eye(2, device=device),
+                        generator=gen)
+    npe = NPE(prior=prior_a, density_estimator="mdn")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        npe.append_simulations(theta, x).train(max_num_epochs=VI_AMORTIZED_EPOCHS, generator=gen)
+    amortized = npe.build_posterior(sample_with="vi")
+    xs = torch.tensor([[0.0, 0.0], [0.5, 0.5]], device=device)
+    _, t_amortized = sync_time(torch, lambda: amortized.train_amortized(
+        xs, max_num_iters=VI_AMORTIZED_ITERS, generator=gen))
+    direct = npe.build_posterior()
+    amortized_errs = []
+    for x_i in xs:
+        s = amortized.sample((500,), x=x_i[None], generator=gen)
+        reference = direct.sample((500,), x=x_i[None], generator=gen)
+        amortized_errs.append(float((s.mean(0) - reference.mean(0)).abs().max()))
+    check(max(amortized_errs) < VI_AMORTIZED_ATOL, f"amortized VI mean errors {amortized_errs}")
+    emit("vi", learning_rate=VI_LR, draws=VI_DRAWS, divergences=fits,
+         psis_k_hat=k_hat, psis_bar=VI_PSIS_MAX, map_err=map_err, map_bar=VI_MAP_ATOL,
+         vi_steps_per_sec_by_q=rates, nle_pipeline={"simulations": VI_NLE_SIMS, "train_s": t_nle,
+                                                    "epochs": nle.summary["epochs_trained"][-1],
+                                                    "iterations": VI_NLE_ITERS, "q": pipeline,
+                                                    "control_c2st": control,
+                                                    "bar": VI_NLE_C2ST_MAX},
+         amortized={"iterations": VI_AMORTIZED_ITERS, "seconds": t_amortized,
+                    "steps_per_s": VI_AMORTIZED_ITERS / t_amortized,
+                    "mean_err_vs_npe": amortized_errs, "bar": VI_AMORTIZED_ATOL})
+
+
+def map_filtered(torch, rqs, device, seed, npe, nle):
+    """``DirectPosterior.map`` on the two_moons NPE trainer ``npe`` and
+    ``MCMCPosterior.map`` on nle_two_moons' posterior at observation 0,
+    each from MAP_DRAWS prior draws, which stay below the bar, to at least
+    as high as the best of MAP_DRAWS posterior draws; then
+    ``FilteredDirectPosterior`` on the NPE's estimator: the count, the
+    support, and every kept draw's log-prob at least the filter's
+    threshold (recomputed from the draws it filtered)."""
+    from sbi_tpu_torch.inference import FilteredDirectPosterior
+    from sbi_tpu_torch.inference.posteriors import filtered_direct_posterior as fdp
+
+    gen = torch.Generator(device=device).manual_seed(seed + 140)
+    observations, _ = reference_posteriors("two_moons")
+    x_o = torch.as_tensor(observations[0], device=device)[None]
+    direct = npe.build_posterior()
+    inits = npe._prior.sample((MAP_DRAWS,), generator=gen)
+    results = {}
+    for name, posterior, draws in (
+            ("direct", direct, direct.sample((MAP_DRAWS,), x=x_o, generator=gen)),
+            ("mcmc", nle["posterior"], nle["draws"][0][:MAP_DRAWS])):
+        counts0 = saved_launches(rqs)
+        theta_map, seconds = sync_time(torch, lambda: posterior.map(
+            x=x_o, init_method=inits, num_iter=MAP_ITERS, generator=gen))
+        launched = {k: a - b for k, a, b in zip(COUNTERS, saved_launches(rqs), counts0)}
+        with torch.no_grad():
+            best_draw = float(posterior.potential(draws, x=x_o).max())
+            best_init = float(posterior.potential(inits, x=x_o).max())
+            at_map = float(posterior.potential(theta_map[None], x=x_o)[0])
+        results[name] = {"seconds": seconds, "map": theta_map.tolist(), "potential_at_map": at_map,
+                         "best_draw_potential": best_draw, "best_init_potential": best_init,
+                         "launches": launched}
+        check(best_init < best_draw - MAP_TOL,
+              f"{name} MAP control: the best prior init {best_init} already reaches the bar")
+        check(at_map >= best_draw - MAP_TOL, f"{name} MAP {at_map} below the best draw {best_draw}")
+        check(launched["forward"] > 0 and launched["backward"] > 0, f"{name} MAP launches {launched}")
+
+    est = direct.posterior_estimator
+    seen = []
+    filter_draws = fdp.filter_draws
+
+    def recorded(raw, log_probs, quantile, prior, num):
+        seen.append(torch.quantile(log_probs, quantile))
+        return filter_draws(raw, log_probs, quantile, prior, num)
+
+    fdp.filter_draws = recorded
+    try:
+        filtered = FilteredDirectPosterior(est, npe._prior, filter_quantile=FILTER_QUANTILE)
+        kept = filtered.sample((FILTER_DRAWS,), x=x_o, generator=gen)
+    finally:
+        fdp.filter_draws = filter_draws
+    with torch.no_grad():
+        kept_lp = est.log_prob(kept[:, None, :], x_o)[:, 0]
+    check(tuple(kept.shape) == (FILTER_DRAWS, 2) and bool(npe._prior.within_support(kept).all()),
+          f"filtered draws {tuple(kept.shape)}")
+    check(len(seen) == 1 and float(kept_lp.min()) >= float(seen[0]) - 1e-5,
+          f"a filtered draw below the threshold: {float(kept_lp.min())} < {seen}")
+    emit("map_filtered", observation=0, draws=MAP_DRAWS, inits="prior draws", iterations=MAP_ITERS,
+         tolerance=MAP_TOL,
+         **results,
+         filtered={"quantile": FILTER_QUANTILE, "draws": FILTER_DRAWS,
+                   "threshold": float(seen[0]), "min_kept_log_prob": float(kept_lp.min())})
+
+
+def samplers_phases(torch, rqs, hmc, device, seed, trained):
+    """HMC / NUTS, VI, MAP and the filtered posterior: the samplers path.
+    The global generators are seeded first (VI's q and the trainers' nets
+    draw their initial weights there), so the path reads the same numbers
+    alone and in the script."""
+    from sbi_tpu_torch.utils.sbiutils import seed_all_backends
+
+    seed_all_backends(seed)
+    t0 = time.perf_counter()
+    rates = hmc_nuts_exact(torch, hmc, device, seed)
+    nuts_nle_two_moons(torch, rqs, hmc, device, seed, trained["nle"])
+    vi_phase(torch, device, seed)
+    map_filtered(torch, rqs, device, seed, trained["npe"], trained["nle"])
+    seconds = time.perf_counter() - t0
+    emit("samplers", seconds=seconds, budget_s=SAMPLERS_BUDGET_S, **rates,
+         posterior_samples_per_sec_1k_slice_chains=trained.get("slice_rate"))
+    check(seconds <= SAMPLERS_BUDGET_S, f"the samplers path took {seconds:.1f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2968,8 +3596,9 @@ def main(argv=None) -> int:
     # after the profiled training epoch, the profiler drops events.
     timings = kernel_timings(torch, rqs, device, args.seed)
     backward = backward_timings(torch, rqs, device, args.seed)
+    vi_q = vi_q_timings(torch, rqs, device, args.seed)
     emit("kernel_timings", timings={("inverse" if k else "forward"): v for k, v in timings.items()},
-         backward=backward,
+         backward=backward, vi_q_K8=vi_q,
          device_ms="device time per call (torch.profiler), the kernel alone",
          time_ms="wall time per call back to back (CUDA events), host work included",
          warm="the working set (35 MB at n = 300,000) stays in the 50 MB L2, as after the conditioner writes it",
@@ -2978,13 +3607,15 @@ def main(argv=None) -> int:
     # bit-for-bit checks and times (before the main paths, as above).
     merge = ensemble_merge(torch, rqs, device, args.seed)
 
-    # 5-16. The main paths, serving, training, NLE and MCMC, ensembles, the
-    # MDN family, vector fields and NRE: each path's counts are zeroed just
-    # before it and read just after, and each of its kernels must have
-    # launched (none on the last three).
-    from sbi_tpu_torch.samplers.mcmc import slice_fsm
+    # 5-17. The main paths, serving, training, NLE and MCMC, ensembles, the
+    # MDN family, vector fields, NRE, the diagnostics and the samplers: each
+    # path's counts are zeroed just before it and read just after, and each
+    # of its kernels must have launched (none on mdn, vector_fields, nre).
+    from sbi_tpu_torch.samplers.mcmc import hmc, slice_fsm
 
-    trained = {}  # the two_moons NPE trainer and nle_slcp's figures, used by later paths
+    # The two_moons NPE trainer and NLE posterior, nle_slcp's figures and the
+    # slice headline, used by later paths.
+    trained = {}
     paths = (
         ("serving", ("forward", "inverse"), lambda: (
             slcp_path(torch, rqs, device, args.seed),
@@ -2995,11 +3626,12 @@ def main(argv=None) -> int:
             snpe_two_rounds(torch, rqs, device, args.seed),
             maf_canonical(torch, device, args.seed))),
         ("nle_mcmc", ("forward", "backward"), lambda: (
-            slice_gaussian(torch, slice_fsm, device, args.seed),
+            trained.setdefault("slice_rate", slice_gaussian(torch, slice_fsm, device, args.seed)),
             slcp_exact_slice(torch, slice_fsm, device, args.seed),
             trained.setdefault("nle_slcp", nle_slcp(torch, rqs, slice_fsm, device, args.seed)),
             mcmc_batched(torch, rqs, device, args.seed,
-                         nle_two_moons(torch, rqs, device, args.seed), trained["npe"]))),
+                         trained.setdefault("nle", nle_two_moons(torch, rqs, device, args.seed))[
+                             "posterior"], trained["npe"]))),
         ("ensembles", ("forward", "inverse", "backward"), lambda: (
             npe_ens8(torch, rqs, device, args.seed),
             nle_poe_slcp(torch, rqs, slice_fsm, device, args.seed, trained["nle_slcp"]))),
@@ -3018,17 +3650,21 @@ def main(argv=None) -> int:
         # BASELINE config 5: training, sample_batched and log_prob ranks.
         ("diagnostics", ("forward", "inverse", "backward"),
          lambda: diagnostics_phases(torch, device, args.seed)),
+        # HMC and NUTS (gradients through the NLE: the backward of the
+        # forward spline), VI (q = nsf: the inverse spline and its backward),
+        # MAP and the filtered posterior.
+        ("samplers", tuple(COUNTERS),
+         lambda: samplers_phases(torch, rqs, hmc, device, args.seed, trained)),
     )
     by_path = {}
     for path, kernels_of_path, drive in paths:
-        rqs.forward_launches = rqs.inverse_launches = rqs.backward_launches = 0
+        restore_launches(rqs, (0,) * len(COUNTERS))
         drive()
-        counts = {"forward": rqs.forward_launches, "inverse": rqs.inverse_launches,
-                  "backward": rqs.backward_launches}
+        counts = dict(zip(COUNTERS, saved_launches(rqs)))
         check(all(counts[k] > 0 for k in kernels_of_path), f"{path} path launches {counts}")
         check(kernels_of_path or not any(counts.values()), f"{path} path launched a kernel {counts}")
         by_path[path] = counts
-    launches = {k: sum(c[k] for c in by_path.values()) for k in ("forward", "inverse", "backward")}
+    launches = {k: sum(c[k] for c in by_path.values()) for k in COUNTERS}
     emit("launches", by_path=by_path, total=launches)
 
     # 17. The kernels line
@@ -3047,6 +3683,8 @@ def main(argv=None) -> int:
             "shape": f"n={t['n']}, K={t['K']}",
             "ms_at_mcmc_n": t["sizes"][str(NLE_CHAINS * 4)]["warm"]["device_ms"],
             "bound_ms_at_mcmc_n": t["sizes"][str(NLE_CHAINS * 4)]["bound_ms"],
+            "ms_at_vi_q": vi_q[direction]["device_ms"], "bound_ms_at_vi_q": vi_q[direction]["bound_ms"],
+            "vi_q_shape": f"n={vi_q['n']}, K={vi_q['K']}",
             "vmap_rule": VMAP_RULE,
         })
     kernels[0].update(ms_merged_at_ensemble_n=merge["merged_device_ms"],
@@ -3058,7 +3696,16 @@ def main(argv=None) -> int:
         "launches_by_path": {p: c["backward"] for p, c in by_path.items()},
         "max_abs_err": worst_backward, "ms": backward["ms"], "plain_ms": backward["plain_ms"],
         "bound_ms": backward["bound_ms"], "bound_by": backward["bound_by"], "library_ms": None,
-        "shape": f"n={backward['n']}, K={backward['K']}, forward direction",
+        "shape": f"n={backward['n']}, K={backward['K']}, forward direction (ms, bound_ms, "
+                 "plain_ms, launches); inverse direction (the *_inverse keys)",
+        "launches_inverse": launches["backward_inverse"],
+        "launches_inverse_by_path": {p: c["backward_inverse"] for p, c in by_path.items()},
+        "ms_inverse": backward["ms_inverse"], "bound_ms_inverse": backward["bound_ms_inverse"],
+        "plain_ms_inverse": backward["plain_ms_inverse"],
+        "ms_at_vi_q": vi_q["backward_forward"]["device_ms"],
+        "ms_inverse_at_vi_q": vi_q["backward_inverse"]["device_ms"],
+        "bound_ms_at_vi_q": vi_q["backward_forward"]["bound_ms"],
+        "vi_q_shape": f"n={vi_q['n']}, K={vi_q['K']}",
         "vmap_rule": VMAP_RULE,
     })
     emit("total", seconds=time.perf_counter() - _START)

@@ -11,9 +11,10 @@ Ported so far: ``NeuralInference``, ``PosteriorEstimatorTrainer``, NPE-C
 vector-field trainers (``FMPE``, ``NPSE``, ``VectorFieldTrainer``) with
 ``VectorFieldPosterior``, ensembles (``train_ensemble``,
 ``build_ensemble_posterior``), ``infer``, ``simulate_for_sbi``,
-``DirectPosterior``, ``MCMCPosterior`` (vectorized slice sampling),
-``RejectionPosterior``, ``ImportanceSamplingPosterior``,
-``EnsemblePosterior``, the typed ``*PosteriorParameters`` and the
+``DirectPosterior``, ``FilteredDirectPosterior``, ``MCMCPosterior``
+(vectorized slice sampling, HMC, NUTS), ``RejectionPosterior``,
+``ImportanceSamplingPosterior``, ``VIPosterior``, ``EnsemblePosterior``,
+the typed ``*PosteriorParameters`` and the
 posterior, likelihood, ratio and vector-field potentials. The other names of
 ``sbi_tpu.inference`` come with later slices and raise
 ``NotImplementedError`` when asked for.
@@ -23,11 +24,13 @@ from ..utils.simulation_utils import simulate_for_sbi
 from .posteriors import (
     DirectPosterior,
     EnsemblePosterior,
+    FilteredDirectPosterior,
     ImportanceSamplingPosterior,
     MCMCPosterior,
     NeuralPosterior,
     RejectionPosterior,
     VectorFieldPosterior,
+    VIPosterior,
 )
 from .posteriors.npe_a_posterior import NPE_A_Posterior
 from .posteriors.posterior_parameters import (
@@ -76,7 +79,7 @@ METHOD_REGISTRY = {
 _LATER_SLICE_NAMES = frozenset((
     "MNLE", "MNPE", "NPE_PFN",
     "MarginalTrainer", "MCABC", "ABC", "SMCABC", "SMC",
-    "VIPosterior", "mixed_likelihood_estimator_based_potential",
+    "mixed_likelihood_estimator_based_potential",
 ))
 
 
@@ -95,7 +98,7 @@ def __getattr__(name):
 
 __all__ = [
     "AALR", "APT", "BNRE", "CNRE", "DirectPosterior", "DirectPosteriorParameters",
-    "EnsemblePosterior", "FMPE", "FilteredDirectPosteriorParameters",
+    "EnsemblePosterior", "FMPE", "FilteredDirectPosterior", "FilteredDirectPosteriorParameters",
     "ImportanceSamplingPosterior", "ImportanceSamplingPosteriorParameters",
     "LikelihoodBasedPotential", "LikelihoodEstimatorTrainer", "MCMCPosterior",
     "MCMCPosteriorParameters", "METHOD_REGISTRY", "NLE", "NLE_A", "NPE", "NPE_A",
@@ -103,7 +106,7 @@ __all__ = [
     "NeuralInference", "NeuralPosterior", "PosteriorEstimatorTrainer", "RatioBasedPotential",
     "RatioEstimatorTrainer", "RejectionPosterior", "RejectionPosteriorParameters", "SNL",
     "SNLE", "SNLE_A", "SNPE", "SNPE_A", "SNPE_B", "SNPE_C", "SNRE", "SNRE_A", "SNRE_B",
-    "SNRE_C", "SRE", "VIPosteriorParameters",
+    "SNRE_C", "SRE", "VIPosterior", "VIPosteriorParameters",
     "VectorFieldBasedPotential", "VectorFieldPosterior", "VectorFieldPosteriorParameters",
     "VectorFieldTrainer", "check_if_proposal_has_default_x", "infer", "likelihood_estimator_based_potential",
     "posterior_estimator_based_potential", "ratio_estimator_based_potential", "simulate_for_sbi",

@@ -1,8 +1,8 @@
 """NeuralPosterior base class.
 
 PyTorch counterpart of ``sbi_tpu/inference/posteriors/base_posterior.py``:
-wraps a potential; ``sample``/``sample_batched`` abstract; ``set_default_x``.
-``map()`` needs ``gradient_ascent`` and comes with a later slice.
+wraps a potential; ``sample``/``sample_batched`` abstract; ``set_default_x``;
+``map()`` by multi-start gradient ascent (``utils/sbiutils.gradient_ascent``).
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from typing import Any, Optional, Tuple, Union
 
 import torch
 
-from ...utils.sbiutils import ensure_theta_batched
+from ...utils.sbiutils import ensure_theta_batched, gradient_ascent, next_generator
 from ...utils.transforms import IdentityTransform
 from ..potentials.base_potential import BasePotential, CustomPotentialWrapper
 
@@ -34,6 +34,7 @@ class NeuralPosterior:
         self.default_x: Optional[torch.Tensor] = (
             potential_fn.return_x_o() if hasattr(potential_fn, "return_x_o") else None
         )
+        self._map = None
         self._purpose = ""
 
     # ------------------------------------------------------------------ x_o
@@ -42,6 +43,7 @@ class NeuralPosterior:
             torch.as_tensor(x, dtype=torch.float32, device=self._device)
         )
         self.potential_fn.set_x(self.default_x)
+        self._map = None
         return self
 
     def _x_else_default_x(self, x) -> Optional[torch.Tensor]:
@@ -72,6 +74,52 @@ class NeuralPosterior:
 
     def log_prob(self, theta, x=None, **kwargs) -> torch.Tensor:
         return self.potential(theta, x)
+
+    # -------------------------------------------------------------------- MAP
+    def map(
+        self,
+        x=None,
+        num_iter: int = 1000,
+        num_to_optimize: int = 100,
+        learning_rate: float = 0.01,
+        init_method="posterior",
+        num_init_samples: int = 1000,
+        save_best_every: int = 10,
+        show_progress_bars: bool = False,
+        force_update: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """The MAP by multi-start Adam ascent on the potential, in the
+        posterior's transformed space, from ``num_init_samples`` draws of
+        the posterior (``init_method="posterior"``) or of the prior
+        (``"proposal"``), or from given inits (a tensor). Defaults as the
+        reference's: 1,000 iterations, 100 starts, lr 0.01. Without ``x``
+        the result is cached until ``set_default_x`` or ``force_update``."""
+        if x is None and self._map is not None and not force_update:
+            return self._map
+        self.potential_fn.set_x(self._x_else_default_x(x))
+        if isinstance(init_method, torch.Tensor):
+            inits = init_method
+        elif init_method == "posterior":
+            inits = self.sample((num_init_samples,), x=x, generator=generator)
+        elif init_method == "proposal":
+            inits = self.potential_fn.prior.sample(
+                (num_init_samples,), generator=next_generator(generator, self._device))
+        else:
+            raise ValueError(f"Unknown init_method {init_method}")
+        theta_map, _ = gradient_ascent(
+            potential_fn=self.potential_fn,
+            inits=inits.to(self._device),
+            theta_transform=self.theta_transform,
+            num_iter=num_iter,
+            num_to_optimize=num_to_optimize,
+            learning_rate=learning_rate,
+            save_best_every=save_best_every,
+            show_progress_bars=show_progress_bars,
+        )
+        if x is None:
+            self._map = theta_map
+        return theta_map
 
     def __repr__(self):
         return f"{self.__class__.__name__}({self._purpose})"

@@ -1,9 +1,12 @@
-"""MCMCPosterior: sample a potential with the vectorized slice sampler.
+"""MCMCPosterior: sample a potential with the vectorized slice sampler, HMC
+or NUTS.
 
 PyTorch counterpart of ``sbi_tpu/inference/posteriors/mcmc_posterior.py``:
 the method names (the reference's ``slice_np_vectorized``, ``slice`` and so
-on map onto the vectorized slice sampler), the init strategies, ``sample``
-and ``sample_batched`` (all observations' chains in one sampler run).
+on map onto the vectorized slice sampler, ``hmc_pyro`` and ``nuts_pymc``
+and so on onto HMC and NUTS), the init strategies, ``sample`` and
+``sample_batched`` (all observations' chains in one slice-sampler run,
+whatever the method, as in the JAX package).
 
 Differences from the JAX package:
 
@@ -13,8 +16,7 @@ Differences from the JAX package:
 - ``max_sweeps_per_program="auto"`` resolves to ``None`` (one run): the JAX
   package bounds its device programs on a TPU only, where a long program
   faults the TPU worker. An int still splits the run into chunks.
-- HMC and NUTS (``method="hmc"``, ``"nuts"`` and their aliases) and
-  ``mesh=`` come with later slices and raise ``NotImplementedError``.
+- ``mesh=`` comes with a later slice and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from ...samplers.mcmc.init_strategy import (
     resample_given_potential_fn,
     sir_init,
 )
+from ...samplers.mcmc.hmc import run_hmc, run_nuts
 from ...samplers.mcmc.slice_jax import run_slice_vectorized
 from ...utils.sbiutils import draw_from_proposal, next_generator, resolve_device
 from ...utils.transforms import transformed_potential
@@ -58,10 +61,7 @@ _METHOD_ALIASES = {
 def _resolve_method(method: str) -> str:
     if method not in _METHOD_ALIASES:
         raise NotImplementedError(f"MCMC method {method} not supported.")
-    resolved = _METHOD_ALIASES[method]
-    if resolved in ("hmc", "nuts"):
-        raise NotImplementedError(f"MCMC method '{method}' ({resolved}) {_LATER_SLICE}.")
-    return resolved
+    return _METHOD_ALIASES[method]
 
 
 def _resolve_max_sweeps(value):
@@ -156,11 +156,13 @@ class MCMCPosterior(NeuralPosterior):
     ) -> torch.Tensor:
         """``sample_shape`` draws, taken from the chains in turn (draw i
         from chain i mod num_chains). The other keyword arguments
-        (``init_width``, ``max_steps_out``, ``max_shrink``, ``tune_width``,
-        ``max_sweeps_per_program``) go to the sampler."""
+        (the slice sampler's ``init_width``, ``max_steps_out``,
+        ``max_shrink``, ``tune_width``; HMC's ``num_leapfrog``,
+        ``target_accept``, ``jitter_steps``; NUTS's ``max_tree_depth``,
+        ``target_accept``; all methods' ``max_sweeps_per_program``) go to
+        the sampler."""
         _no_mesh(mesh)
-        if method is not None:
-            _resolve_method(method)
+        method = _resolve_method(method) if method else self.method
         generator = next_generator(generator, self._device)
         self.potential_fn.set_x(
             self._x_else_default_x(x),
@@ -176,7 +178,8 @@ class MCMCPosterior(NeuralPosterior):
         inits = self._get_initial_params(num_chains, generator)
         pot_u = transformed_potential(self.potential_fn, self.theta_transform)
         per_chain = max(1, math.ceil(num_samples / num_chains))
-        draws_u = run_slice_vectorized(
+        runner = {"hmc": run_hmc, "nuts": run_nuts}.get(method, run_slice_vectorized)
+        draws_u = runner(
             pot_u, inits, num_samples=per_chain, thin=thin, warmup_steps=warmup_steps,
             generator=generator,
             max_sweeps_per_program=_resolve_max_sweeps(kwargs.pop("max_sweeps_per_program", "auto")),

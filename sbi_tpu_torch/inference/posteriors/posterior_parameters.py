@@ -2,11 +2,11 @@
 
 PyTorch counterpart of ``sbi_tpu/inference/posteriors/posterior_parameters.py``:
 validated configurations that ``build_posterior(posterior_parameters=...)``
-takes. ``build_posterior_from_parameters`` builds a ``DirectPosterior``
-(NPE), a ``VectorFieldPosterior`` (FMPE, NPSE), or an ``MCMCPosterior``, a
-``RejectionPosterior`` or an ``ImportanceSamplingPosterior`` over the
-potential of an NPE, NLE or NRE estimator; VI and the filtered direct
-posterior come with later slices and raise.
+takes. ``build_posterior_from_parameters`` builds a ``DirectPosterior`` or a
+``FilteredDirectPosterior`` (NPE), a ``VectorFieldPosterior`` (FMPE, NPSE),
+or an ``MCMCPosterior``, a ``RejectionPosterior``, an
+``ImportanceSamplingPosterior`` or a ``VIPosterior`` over the potential of
+an NPE, NLE or NRE estimator.
 """
 
 from __future__ import annotations
@@ -16,10 +16,6 @@ from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 _LATER_SLICE = "comes with a later slice of the port"
-
-# The divergences of the JAX package's VI registry
-# (``samplers/vi/vi_divergence_optimizers.py``).
-_VI_METHODS = ("IW", "alpha", "fKL", "rKL")
 
 
 def check_legacy_sampler_args(
@@ -113,10 +109,9 @@ class VIPosteriorParameters:
     vi_method: str = "rKL"
 
     def __post_init__(self):
-        if self.vi_method not in _VI_METHODS:
-            raise NotImplementedError(
-                f"Unknown VI divergence '{self.vi_method}'. Available: {sorted(_VI_METHODS)}"
-            )
+        from ...samplers.vi.vi_divergence_optimizers import get_VI_method
+
+        get_VI_method(self.vi_method)  # raises for unknown methods
 
 
 @dataclass
@@ -134,11 +129,12 @@ def potential_posterior(sample_with: str, potential_fn, theta_transform, prior,
                         mcmc_method: str = "slice_jax_vectorized",
                         mcmc_parameters: Optional[Dict] = None,
                         rejection_sampling_parameters: Optional[Dict] = None,
-                        importance_sampling_parameters: Optional[Dict] = None):
+                        importance_sampling_parameters: Optional[Dict] = None,
+                        vi_parameters: Optional[Dict] = None):
     """The posterior of a potential that the trainers' ``build_posterior(
     sample_with=...)`` builds, the prior as proposal: an
-    ``MCMCPosterior`` (``"mcmc"``), a ``RejectionPosterior`` or an
-    ``ImportanceSamplingPosterior``. ``"vi"`` comes with a later slice."""
+    ``MCMCPosterior`` (``"mcmc"``), a ``RejectionPosterior``, an
+    ``ImportanceSamplingPosterior`` or a ``VIPosterior`` (``"vi"``)."""
     if sample_with == "mcmc":
         from .mcmc_posterior import MCMCPosterior
 
@@ -156,7 +152,10 @@ def potential_posterior(sample_with: str, potential_fn, theta_transform, prior,
                                            theta_transform=theta_transform,
                                            **(importance_sampling_parameters or {}))
     if sample_with == "vi":
-        raise NotImplementedError(f"build_posterior(sample_with='vi') {_LATER_SLICE}.")
+        from .vi_posterior import VIPosterior
+
+        return VIPosterior(potential_fn, prior=prior, theta_transform=theta_transform,
+                           **(vi_parameters or {}))
     raise NotImplementedError(f"sample_with='{sample_with}' not supported.")
 
 
@@ -175,7 +174,9 @@ def build_posterior_from_parameters(parameters, estimator, prior, kind: str = "n
                 "Importance/VI posterior parameters instead."
             )
         if isinstance(parameters, FilteredDirectPosteriorParameters):
-            raise NotImplementedError(f"FilteredDirectPosterior {_LATER_SLICE}.")
+            from .filtered_direct_posterior import FilteredDirectPosterior
+
+            return FilteredDirectPosterior(estimator, prior, **kwargs)
         from .direct_posterior import DirectPosterior
 
         return DirectPosterior(estimator, prior, **kwargs)
@@ -188,10 +189,8 @@ def build_posterior_from_parameters(parameters, estimator, prior, kind: str = "n
         from .vector_field_posterior import VectorFieldPosterior
 
         return VectorFieldPosterior(estimator, prior, **kwargs)
-    if isinstance(parameters, VIPosteriorParameters):
-        raise NotImplementedError(f"The posterior of {type(parameters).__name__} {_LATER_SLICE}.")
     if not isinstance(parameters, (MCMCPosteriorParameters, RejectionPosteriorParameters,
-                                   ImportanceSamplingPosteriorParameters)):
+                                   ImportanceSamplingPosteriorParameters, VIPosteriorParameters)):
         raise TypeError(f"Unknown posterior parameters type {type(parameters)}")
     # Potential-based posteriors need the potential of the kind.
     if kind == "nle":
@@ -216,5 +215,7 @@ def build_posterior_from_parameters(parameters, estimator, prior, kind: str = "n
     if isinstance(parameters, RejectionPosteriorParameters):
         return potential_posterior("rejection", potential_fn, theta_transform, prior,
                                    rejection_sampling_parameters=kwargs)
+    if isinstance(parameters, VIPosteriorParameters):
+        return potential_posterior("vi", potential_fn, theta_transform, prior, vi_parameters=kwargs)
     return potential_posterior("importance", potential_fn, theta_transform, prior,
                                importance_sampling_parameters=kwargs)

@@ -4,9 +4,9 @@ PyTorch counterpart of ``sbi_tpu/inference/trainers/nle/nle_base.py``: the
 loss is -log p(x | theta) (the estimator's input is x, its condition
 theta), trained by ``NeuralInference._run_training_loop``; the posterior is
 the likelihood potential times the prior, sampled by the vectorized slice
-sampler (``MCMCPosterior``), by rejection or by importance sampling, or as
-typed ``posterior_parameters`` describe it. ``sample_with="vi"`` comes
-with a later slice.
+sampler, HMC or NUTS (``MCMCPosterior``), by rejection, by importance
+sampling or by variational inference (``VIPosterior``), or as typed
+``posterior_parameters`` describe it.
 """
 
 from __future__ import annotations
@@ -145,8 +145,8 @@ class LikelihoodEstimatorTrainer(NeuralInference):
     ):
         """The posterior of the likelihood potential of a frozen copy of
         the estimator and the prior: an ``MCMCPosterior`` (vectorized slice
-        sampling by default), a ``RejectionPosterior`` or an
-        ``ImportanceSamplingPosterior``."""
+        sampling by default), a ``RejectionPosterior``, an
+        ``ImportanceSamplingPosterior`` or a ``VIPosterior``."""
         from ...potentials.likelihood_based_potential import likelihood_estimator_based_potential
         from ...posteriors.posterior_parameters import (
             build_posterior_from_parameters,
@@ -179,7 +179,8 @@ class LikelihoodEstimatorTrainer(NeuralInference):
             sample_with, potential_fn, theta_transform, prior, mcmc_method=mcmc_method,
             mcmc_parameters=mcmc_parameters,
             rejection_sampling_parameters=rejection_sampling_parameters,
-            importance_sampling_parameters=importance_sampling_parameters)
+            importance_sampling_parameters=importance_sampling_parameters,
+            vi_parameters=vi_parameters)
         return self._posterior
 
 

@@ -4,9 +4,8 @@ PyTorch counterpart of ``sbi_tpu/inference/trainers/npe/npe_base.py``:
 ``append_simulations(..., proposal=)`` round bookkeeping, ``train()``, the
 first-round loss -log q(theta | x) (optionally weighted by a calibration
 kernel), the lazy net build from the first round's data, and
-``build_posterior``: ``sample_with="direct"``, ``"mcmc"``, ``"rejection"``
-or ``"importance"``, or typed ``posterior_parameters``; ``"vi"`` comes
-with a later slice.
+``build_posterior``: ``sample_with="direct"``, ``"mcmc"``, ``"rejection"``,
+``"importance"`` or ``"vi"``, or typed ``posterior_parameters``.
 """
 
 from __future__ import annotations
@@ -193,10 +192,10 @@ class PosteriorEstimatorTrainer(NeuralInference):
     ):
         """A ``DirectPosterior`` (``sample_with="direct"``), or an
         ``MCMCPosterior`` (``"mcmc"``), ``RejectionPosterior`` or
-        ``ImportanceSamplingPosterior`` over the posterior potential, over a
-        frozen copy of the estimator and the prior; or the posterior that
-        ``posterior_parameters`` describes (``build_posterior_from_parameters``).
-        ``"vi"`` comes with a later slice."""
+        ``ImportanceSamplingPosterior`` or ``VIPosterior`` (``"vi"``) over
+        the posterior potential, over a frozen copy of the estimator and
+        the prior; or the posterior that ``posterior_parameters`` describes
+        (``build_posterior_from_parameters``)."""
         from ...posteriors.direct_posterior import DirectPosterior
         from ...posteriors.posterior_parameters import (
             build_posterior_from_parameters,
@@ -226,5 +225,6 @@ class PosteriorEstimatorTrainer(NeuralInference):
                 sample_with, potential_fn, theta_transform, prior, mcmc_method=mcmc_method,
                 mcmc_parameters=mcmc_parameters,
                 rejection_sampling_parameters=rejection_sampling_parameters,
-                importance_sampling_parameters=importance_sampling_parameters)
+                importance_sampling_parameters=importance_sampling_parameters,
+                vi_parameters=vi_parameters)
         return self._posterior

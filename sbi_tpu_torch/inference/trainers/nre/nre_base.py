@@ -17,8 +17,8 @@ because random numbers inside ``torch.func.vmap`` would repeat across
 members.
 
 ``build_posterior`` offers ``sample_with="mcmc"`` (the vectorized slice
-sampler, the default), ``"rejection"`` and ``"importance"``, or typed
-``posterior_parameters``; ``"vi"`` comes with a later slice.
+sampler by default, or HMC or NUTS), ``"rejection"``, ``"importance"`` and
+``"vi"``, or typed ``posterior_parameters``.
 """
 
 from __future__ import annotations
@@ -196,9 +196,9 @@ class RatioEstimatorTrainer(NeuralInference):
     ):
         """The posterior of the ratio potential (a frozen copy of the
         estimator) times the prior: ``MCMCPosterior`` (vectorized slice
-        sampling by default), ``RejectionPosterior`` or
-        ``ImportanceSamplingPosterior``, or as typed ``posterior_parameters``
-        describe it."""
+        sampling by default), ``RejectionPosterior``,
+        ``ImportanceSamplingPosterior`` or ``VIPosterior``, or as typed
+        ``posterior_parameters`` describe it."""
         from ...potentials.ratio_based_potential import ratio_estimator_based_potential
         from ...posteriors.posterior_parameters import (
             build_posterior_from_parameters,
@@ -233,5 +233,6 @@ class RatioEstimatorTrainer(NeuralInference):
             sample_with, potential_fn, theta_transform, prior, mcmc_method=mcmc_method,
             mcmc_parameters=mcmc_parameters,
             rejection_sampling_parameters=rejection_sampling_parameters,
-            importance_sampling_parameters=importance_sampling_parameters)
+            importance_sampling_parameters=importance_sampling_parameters,
+            vi_parameters=vi_parameters)
         return self._posterior

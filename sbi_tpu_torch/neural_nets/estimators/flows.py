@@ -4,9 +4,9 @@ PyTorch counterpart of the NSF and MAF pieces of
 ``sbi_tpu/neural_nets/estimators/flows.py``: the RQ spline (re-exported from
 ``ops/rqs.py``, the CUDA kernels on the card), MADE masks, ``MaskedDense``,
 ``MADENet``, ``MaskedAffineAutoregressive``, ``MaskedRQSAutoregressive``,
-``RQSCoupling``, ``LULinear``, ``Permutation``, ``FlowModule`` and
-``FlowEstimator``. NICE, the circular spline and MADE-MoG come with later
-slices.
+``RQSCoupling``, ``AdditiveCoupling`` (NICE), ``LULinear``, ``DiagAffine``,
+``Permutation``, ``FlowModule`` and ``FlowEstimator``. The monotone flows,
+the circular spline and MADE-MoG come with later slices.
 
 Conventions (as in the JAX package):
   - ``forward`` maps data -> noise (one pass for all layers), ``inverse``
@@ -160,12 +160,13 @@ class MaskedAffineAutoregressive(nn.Module):
         return (x - mu) * torch.exp(-log_scale), -log_scale.sum(-1)
 
     def inverse(self, z, context=None):
-        # Sequential over dims: dim i only depends on x_<i.
+        # Sequential over dims: dim i only depends on x_<i, so after D - 1
+        # passes every dim's parameters are final and the last pass's
+        # log-scale is the log-det's (the JAX package runs one more pass).
         x = torch.zeros_like(z)
         for _ in range(self.dim):
             mu, log_scale = self._params(x, context)
             x = mu + z * torch.exp(log_scale)
-        _, log_scale = self._params(x, context)
         return x, log_scale.sum(-1)
 
 
@@ -258,6 +259,41 @@ class RQSCoupling(nn.Module):
         return self._transform(z, context, inverse=True)
 
 
+class AdditiveCoupling(nn.Module):
+    """NICE additive coupling: the identity half (and the context) feeds
+    ``num_blocks`` ReLU layers and a zero-initialised head, whose output
+    shifts the other half. Volume-preserving: the log-det is 0."""
+
+    def __init__(self, dim: int, mask: Any, hidden_features: int = 50, num_blocks: int = 2,
+                 context_features: Optional[int] = None):
+        super().__init__()
+        mask = np.asarray(mask, dtype=bool)  # True = identity half
+        id_idx, tr_idx = np.where(mask)[0], np.where(~mask)[0]
+        self.register_buffer("id_idx", torch.as_tensor(id_idx, dtype=torch.long))
+        self.register_buffer("tr_idx", torch.as_tensor(tr_idx, dtype=torch.long))
+        order = np.argsort(np.concatenate([id_idx, tr_idx]))
+        self.register_buffer("merge_idx", torch.as_tensor(order, dtype=torch.long))
+        # Creation order = flax's Dense_0 .. Dense_{num_blocks}.
+        widths = [len(id_idx) + (context_features or 0)] + [hidden_features] * num_blocks
+        layers = [_dense(a, b) for a, b in zip(widths[:-1], widths[1:])]
+        layers.append(_dense(widths[-1], len(tr_idx), zero_init=True))
+        self.dense = nn.ModuleList(layers)
+
+    def _transform(self, v, context, sign):
+        x_id = v[:, self.id_idx]
+        h = x_id if context is None else torch.cat([x_id, context], dim=-1)
+        for layer in self.dense[:-1]:
+            h = F.relu(layer(h))
+        y_tr = v[:, self.tr_idx] + sign * self.dense[-1](h)
+        return torch.cat([x_id, y_tr], dim=1)[:, self.merge_idx], v.new_zeros(v.shape[0])
+
+    def forward(self, x, context=None):
+        return self._transform(x, context, 1.0)
+
+    def inverse(self, z, context=None):
+        return self._transform(z, context, -1.0)
+
+
 class LULinear(nn.Module):
     """Invertible linear layer W = L U (unit-lower L, upper U), + bias."""
 
@@ -295,6 +331,24 @@ class LULinear(nn.Module):
         return x, (-self.log_diag.sum()).expand(y.shape[0])
 
 
+class DiagAffine(nn.Module):
+    """Elementwise affine bijection x -> exp(log_scale) * x + shift, both
+    zero-initialised: a mean-field Gaussian on a standard-normal base (VI's
+    ``q="gaussian_diag"``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.log_scale = nn.Parameter(torch.zeros(dim))
+        self.shift = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x, context=None):
+        return x * torch.exp(self.log_scale) + self.shift, self.log_scale.sum().expand(x.shape[0])
+
+    def inverse(self, y, context=None):
+        x = (y - self.shift) * torch.exp(-self.log_scale)
+        return x, (-self.log_scale.sum()).expand(y.shape[0])
+
+
 class Permutation(nn.Module):
     """Fixed permutation of dims."""
 
@@ -315,7 +369,7 @@ class Permutation(nn.Module):
 # Flow module: stack of bijections + standard-normal base
 # ===========================================================================
 
-_LATER_SLICE_LAYERS = ("additive_coupling", "diag_affine", "monotone_ar")
+_LATER_SLICE_LAYERS = ("monotone_ar",)
 
 
 class FlowModule(nn.Module):
@@ -338,8 +392,12 @@ class FlowModule(nn.Module):
                 layers.append(MaskedRQSAutoregressive(dim=dim, context_features=context_features, **kw))
             elif kind == "rqs_coupling":
                 layers.append(RQSCoupling(dim=dim, context_features=context_features, **kw))
+            elif kind == "additive_coupling":
+                layers.append(AdditiveCoupling(dim=dim, context_features=context_features, **kw))
             elif kind == "lu_linear":
                 layers.append(LULinear(dim=dim, **kw))
+            elif kind == "diag_affine":
+                layers.append(DiagAffine(dim=dim, **kw))
             elif kind == "permutation":
                 layers.append(Permutation(**kw))
             elif kind in _LATER_SLICE_LAYERS:
@@ -402,11 +460,15 @@ class FlowModule(nn.Module):
         h, _ = self.inverse(z, ctx_rep)
         return h.reshape(num_samples, B, self.dim)
 
+    def inverse_and_log_prob(self, z, context=None):
+        """Noise z (N, D) -> (samples (N, D), their log-prob (N,)) in one
+        pass; ``context`` is already embedded, one row per row of ``z``."""
+        h, total = self.inverse(z, context)
+        return h, (-0.5 * z**2 - _LOG_SQRT_2PI).sum(-1) - total
+
     def sample_and_log_prob(self, num_samples, context=None, generator=None):
         z, ctx_rep, B = self._noise(num_samples, context, generator)
-        base_lp = (-0.5 * z**2 - _LOG_SQRT_2PI).sum(-1)
-        h, total = self.inverse(z, ctx_rep)
-        lp = base_lp - total
+        h, lp = self.inverse_and_log_prob(z, ctx_rep)
         return h.reshape(num_samples, B, self.dim), lp.reshape(num_samples, B)
 
 

@@ -50,12 +50,15 @@ DEFAULT_MIN_BIN_HEIGHT = 1e-3
 DEFAULT_MIN_DERIVATIVE = 1e-3
 MAX_BINS = 256  # kMaxBins in csrc/rqs.cu
 
-# Kernel launches: the spline by direction, and its backward (either
-# direction). Incremented where a kernel is launched and nowhere else;
-# callers reset them to 0 to count the launches of one run.
+# Kernel launches: the spline by direction, and its backward by the
+# direction it differentiates (``backward_launches`` the forward spline's,
+# ``backward_inverse_launches`` the inverse spline's). Incremented where a
+# kernel is launched and nowhere else; callers reset them to 0 to count the
+# launches of one run.
 forward_launches = 0
 inverse_launches = 0
 backward_launches = 0
+backward_inverse_launches = 0
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "rqs.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -440,7 +443,7 @@ def _launch(x, w, h, d, inverse, tail_bound, mbw, mbh, mdr):
 def _launch_backward(x, w, h, d, grad_y, grad_ld, needs, inverse, tail_bound, mbw, mbh, mdr):
     """The backward kernel: gradients of x, w, h, d (each contiguous, in its
     input's shape), with None where ``needs`` does not ask for one."""
-    global backward_launches
+    global backward_launches, backward_inverse_launches
     K = w.shape[-1]
     x = x.contiguous()
     grad_y = grad_y.contiguous()
@@ -456,7 +459,10 @@ def _launch_backward(x, w, h, d, grad_y, grad_ld, needs, inverse, tail_bound, mb
             grad_y.data_ptr(), grad_ld.data_ptr(), *ptrs, n, w2.stride(0),
             h2.stride(0), d2.stride(0), K, inverse, tail_bound, mbw, mbh, mdr)
     _call((_lib or _library()).sbi_rqs_spline_backward, x.get_device(), args)
-    backward_launches += 1
+    if inverse:
+        backward_inverse_launches += 1
+    else:
+        backward_launches += 1
     return outs
 
 

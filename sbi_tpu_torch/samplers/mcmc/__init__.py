@@ -1,10 +1,10 @@
-"""MCMC samplers: the vectorized slice sampler and the init strategies.
+"""MCMC samplers: the vectorized slice sampler, HMC and NUTS, and the init
+strategies.
 
-PyTorch counterpart of ``sbi_tpu/samplers/mcmc``. HMC and NUTS
-(``run_hmc``, ``run_nuts``, ``run_nuts_jittered``) come with a later slice
-and raise ``NotImplementedError``.
+PyTorch counterpart of ``sbi_tpu/samplers/mcmc``.
 """
 
+from .hmc import run_hmc, run_nuts, run_nuts_jittered
 from .init_strategy import (
     IterateParameters,
     proposal_init,
@@ -24,18 +24,6 @@ from .slice_jax import (
     run_slice_vectorized,
 )
 
-
-def _later_slice(name):
-    def sampler(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet; it comes with a later slice.")
-
-    sampler.__name__ = name
-    return sampler
-
-
-run_hmc = _later_slice("run_hmc")
-run_nuts = _later_slice("run_nuts")
-run_nuts_jittered = _later_slice("run_nuts_jittered")
 
 __all__ = [
     "IterateParameters",

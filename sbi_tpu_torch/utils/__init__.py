@@ -22,6 +22,7 @@ from .mlp_classifier import BatchedMLPClassifier
 from .sbiutils import (
     draw_from_proposal,
     ensure_theta_batched,
+    gradient_ascent,
     handle_invalid_x,
     mog_log_prob,
     next_generator,

@@ -5,8 +5,10 @@ The JAX package's parameters arrive as a nested dict of numpy arrays (for
 example ``jax.tree_util.tree_map(np.asarray, est.params)``); this module
 imports no JAX. Layer names follow flax:
 
-  - ``layers_{i}/Dense_{j}``: ``RQSCoupling``'s conditioner, ``Dense_0``
-    taking ``[x_id, context]`` and the last ``Dense`` the zero-init head;
+  - ``layers_{i}/Dense_{j}``: ``RQSCoupling``'s conditioner and
+    ``AdditiveCoupling``'s shift net, ``Dense_0`` taking ``[x_id, context]``
+    and the last ``Dense`` the zero-init head;
+  - ``layers_{i}/{log_scale, shift}``: ``DiagAffine``;
   - ``layers_{i}/made/{MaskedDense_j, Dense_0}``: ``MaskedRQSAutoregressive``
     and ``MaskedAffineAutoregressive`` (``Dense_0`` is the context
     injection);
@@ -41,6 +43,10 @@ or (out, in, kh, kw).
 ``coefs_`` and ``intercepts_``, numpy arrays; sklearn is not imported) into
 one ``BatchedMLPClassifier``.
 
+``load_flax_flow`` loads an unconditional ``FlowModule`` (the variational
+posterior's q) from the flax parameters of the JAX package's
+``FlowModule``.
+
 ``load_stacked_flax_params`` loads an ensemble's stacked parameters (each
 leaf with a leading member axis, as ``train_ensemble`` holds them in
 ``_ensemble_stacked_params``) into one estimator per member.
@@ -64,6 +70,9 @@ from ..neural_nets.estimators.ratio_estimators import (
 )
 from ..neural_nets.net_builders.vector_field_nets import VectorFieldAdaMLP, VectorFieldMLP
 from ..neural_nets.estimators.flows import (
+    AdditiveCoupling,
+    DiagAffine,
+    FlowModule,
     LULinear,
     MADENet,
     MaskedAffineAutoregressive,
@@ -183,22 +192,7 @@ def load_flax_params(
             used = _load_vector_field(estimator.net, tree)
         if isinstance(estimator.net, _CLASSIFIERS):
             used = _load_classifier(estimator.net, tree)
-        for i, layer in enumerate(getattr(estimator.net, "layers", ())):
-            name = f"layers_{i}"
-            if isinstance(layer, Permutation):
-                continue
-            p = tree[name]
-            if isinstance(layer, RQSCoupling):
-                for j, dense in enumerate(layer.dense):
-                    used += _load_dense(dense, p[f"Dense_{j}"], f"{name}/Dense_{j}")
-            elif isinstance(layer, (MaskedRQSAutoregressive, MaskedAffineAutoregressive)):
-                used += _load_made(layer.made, p["made"], f"{name}/made")
-            elif isinstance(layer, LULinear):
-                for attr in ("lower", "upper", "log_diag", "bias"):
-                    _copy(getattr(layer, attr), p[attr], f"{name}/{attr}")
-                    used += 1
-            else:
-                raise TypeError(f"{name}: no bridge for {type(layer).__name__}")
+        used += _load_flow_layers(estimator.net, tree)
     if used != leaves:
         raise ValueError(f"bridged {used} of {leaves} parameter leaves")
     if input_loc is not None:
@@ -206,6 +200,44 @@ def load_flax_params(
     if condition_loc is not None:
         estimator.condition_transform = _affine(condition_loc, condition_scale, device)
     return estimator
+
+
+def _load_flow_layers(net: nn.Module, tree: Mapping) -> int:
+    """Copy ``layers_{i}`` of a flax ``FlowModule`` into ``net.layers``
+    (none for a net without layers); returns the number of leaves used."""
+    used = 0
+    for i, layer in enumerate(getattr(net, "layers", ())):
+        name = f"layers_{i}"
+        if isinstance(layer, Permutation):
+            continue
+        p = tree[name]
+        if isinstance(layer, (RQSCoupling, AdditiveCoupling)):
+            for j, dense in enumerate(layer.dense):
+                used += _load_dense(dense, p[f"Dense_{j}"], f"{name}/Dense_{j}")
+        elif isinstance(layer, (MaskedRQSAutoregressive, MaskedAffineAutoregressive)):
+            used += _load_made(layer.made, p["made"], f"{name}/made")
+        elif isinstance(layer, (LULinear, DiagAffine)):
+            attrs = ("lower", "upper", "log_diag", "bias") if isinstance(layer, LULinear) \
+                else ("log_scale", "shift")
+            for attr in attrs:
+                _copy(getattr(layer, attr), p[attr], f"{name}/{attr}")
+                used += 1
+        else:
+            raise TypeError(f"{name}: no bridge for {type(layer).__name__}")
+    return used
+
+
+def load_flax_flow(module: FlowModule, params: Mapping) -> FlowModule:
+    """Copy a flax ``FlowModule``'s parameters into ``module`` (built with
+    the same layer configurations and no embedding net). Every leaf must be
+    used exactly once. Returns the module."""
+    tree = params.get("params", params)
+    leaves = sum(_count_leaves(v) for v in tree.values())
+    with torch.no_grad():
+        used = _load_flow_layers(module, tree)
+    if used != leaves:
+        raise ValueError(f"bridged {used} of {leaves} parameter leaves")
+    return module
 
 
 def _load_mdn(net: MDNModule, tree: Mapping) -> int:

@@ -270,3 +270,61 @@ def ensure_theta_batched(theta, device=None) -> torch.Tensor:
     if theta.ndim == 1:
         theta = theta[None]
     return theta
+
+
+# ---------------------------------------------------------------------------
+# Gradient ascent / MAP (mirror of `sbi_tpu/utils/sbiutils.py:287-342`)
+# ---------------------------------------------------------------------------
+
+
+def gradient_ascent(
+    potential_fn,
+    inits,
+    theta_transform=None,
+    num_iter: int = 1000,
+    num_to_optimize: int = 100,
+    learning_rate: float = 0.01,
+    save_best_every: int = 10,
+    show_progress_bars: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-start Adam ascent on ``potential_fn`` in the transformed
+    space; returns (argmax theta, max potential).
+
+    The ``num_to_optimize`` inits of the highest potential start; Adam is
+    ``optax.adam``'s (betas 0.9 / 0.999, eps 1e-8 outside the square root,
+    bias-corrected). The best value and position of every start are kept
+    on the device with ``torch.where`` after every step, so the loop never
+    waits for the device. The potential at a step's new position is read
+    from the next step's gradient pass (the last one from one more pass):
+    the JAX package's values, one pass fewer a step. ``save_best_every``
+    is accepted and, as in the JAX package, changes nothing.
+    """
+    from .transforms import IdentityTransform
+
+    tf = theta_transform if theta_transform is not None else IdentityTransform()
+    inits = torch.as_tensor(inits, dtype=torch.float32)
+    with torch.no_grad():
+        init_potentials = potential_fn(inits)
+        num_keep = min(num_to_optimize, inits.shape[0])
+        top = torch.argsort(-init_potentials)[:num_keep]
+        u = tf.forward(inits[top]).detach().clone().requires_grad_(True)
+    best_u = u.detach().clone()
+    best_val = torch.full((num_keep,), -math.inf, device=inits.device)
+    opt = torch.optim.Adam([u], lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+    def keep_best(vals):
+        improved = vals > best_val
+        best_val.copy_(torch.where(improved, vals, best_val))
+        best_u.copy_(torch.where(improved[:, None], u.detach(), best_u))
+
+    with torch.enable_grad():
+        for _ in range(num_iter):
+            vals = potential_fn(tf.inverse(u))
+            keep_best(vals.detach())
+            opt.zero_grad(set_to_none=True)
+            (-vals.sum()).backward()
+            opt.step()
+    with torch.no_grad():
+        keep_best(potential_fn(tf.inverse(u)))
+        best_idx = torch.argmax(best_val)
+        return tf.inverse(best_u[best_idx][None])[0], best_val[best_idx]

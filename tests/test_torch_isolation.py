@@ -62,7 +62,12 @@ def test_import_leaves_jax_out():
         "sbi_tpu_torch.neural_nets.estimators.mdn, sbi_tpu_torch.neural_nets.net_builders.mdn, "
         "sbi_tpu_torch.inference.trainers.npe.npe_a, sbi_tpu_torch.inference.trainers.npe.npe_b, "
         "sbi_tpu_torch.inference.posteriors.npe_a_posterior, "
-        "sbi_tpu_torch.inference.posteriors.posterior_parameters\n"
+        "sbi_tpu_torch.inference.posteriors.posterior_parameters, "
+        "sbi_tpu_torch.samplers.mcmc.hmc, sbi_tpu_torch.samplers.vi, "
+        "sbi_tpu_torch.samplers.vi.vi_divergence_optimizers, "
+        "sbi_tpu_torch.samplers.vi.vi_quality_control, "
+        "sbi_tpu_torch.inference.posteriors.vi_posterior, "
+        "sbi_tpu_torch.inference.posteriors.filtered_direct_posterior\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'sbi_tpu')]\n"
         "assert not bad, bad\n"
@@ -127,12 +132,12 @@ def test_entry_points_default_to_cuda():
 
 
 def test_nle_and_mcmc_default_to_cuda():
-    """NLE, MCMCPosterior (over a potential that names no device) and
-    infer(..., "NLE") raise without CUDA; with device="cpu" they run. HMC
-    is not ported yet."""
+    """NLE, MCMCPosterior (over a potential that names no device, with
+    every method), VIPosterior and infer(..., "NLE") raise without CUDA;
+    with device="cpu" they run."""
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without CUDA")
-    from sbi_tpu_torch.inference import NLE, MCMCPosterior, infer
+    from sbi_tpu_torch.inference import NLE, MCMCPosterior, VIPosterior, infer
     from sbi_tpu_torch.neural_nets import likelihood_nn
     from sbi_tpu_torch.simulators import two_moons_simulator
     from sbi_tpu_torch.utils import BoxUniform
@@ -151,11 +156,15 @@ def test_nle_and_mcmc_default_to_cuda():
         MCMCPosterior(potential, proposal=prior)
     with pytest.raises(RuntimeError, match="CUDA"):
         infer(two_moons_simulator, prior, "NLE", 50)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        MCMCPosterior(potential, proposal=prior, method="hmc", device="cpu")
-    samples = MCMCPosterior(potential, proposal=prior, num_chains=4, warmup_steps=5,
-                            device="cpu").sample((8,))
-    assert samples.shape == (8, 2) and samples.device == torch.device("cpu")
+    for method in ("hmc", "nuts"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            MCMCPosterior(potential, proposal=prior, method=method)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VIPosterior(potential, prior=prior)
+    for method in ("slice_np_vectorized", "hmc", "nuts"):
+        samples = MCMCPosterior(potential, proposal=prior, num_chains=4, warmup_steps=5,
+                                method=method, device="cpu").sample((8,))
+        assert samples.shape == (8, 2) and samples.device == torch.device("cpu")
     small = likelihood_nn("nsf", hidden_features=8, num_transforms=1, device="cpu")
     trainer = NLE(prior=prior, density_estimator=small, device="cpu")
     theta = prior.sample((50,))

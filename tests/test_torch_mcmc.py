@@ -331,15 +331,14 @@ def test_methods_and_later_slice_options():
     for name in ("slice_np", "slice_np_vectorized", "slice", "slice_pymc", "slice_jax"):
         assert MCMCPosterior(pot, proposal=prior, method=name, device="cpu").method.startswith("slice")
     for name in ("hmc", "nuts", "nuts_pyro", "hmc_pymc"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            MCMCPosterior(pot, proposal=prior, method=name, device="cpu")
+        assert MCMCPosterior(pot, proposal=prior, method=name, device="cpu").method == name.split("_")[0]
     with pytest.raises(NotImplementedError, match="not supported"):
         MCMCPosterior(pot, proposal=prior, method="gibbs", device="cpu")
     post = MCMCPosterior(pot, proposal=prior, device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         post.sample((5,), mesh="auto")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        post.sample((5,), method="nuts")
+    nuts = post.sample((5,), method="nuts", num_chains=5, warmup_steps=3, max_tree_depth=3)
+    assert nuts.shape == (5, 2) and bool(prior.within_support(nuts).all())
     with pytest.raises(ValueError, match="max_sweeps_per_program"):
         post.sample((5,), max_sweeps_per_program=0)
 

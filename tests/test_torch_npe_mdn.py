@@ -56,12 +56,14 @@ from sbi_tpu_torch.inference import (
     NPE_C,
     DirectPosterior,
     DirectPosteriorParameters,
+    FilteredDirectPosterior,
     ImportanceSamplingPosterior,
     MCMCPosterior,
     MCMCPosteriorParameters,
     NPE_A_Posterior,
     RejectionPosterior,
     VectorFieldPosteriorParameters,
+    VIPosterior,
     VIPosteriorParameters,
     infer,
 )
@@ -342,10 +344,14 @@ def test_build_posterior_from_parameters_dispatch():
             post = build(params, te, tprior, kind=kind)
             assert isinstance(post, cls) and post.proposal is tprior
     assert build(params, te, tprior, kind="npe").oversampling_factor == 4
-    for params, kind in ((MCMCPosteriorParameters(), "vf"), (VIPosteriorParameters(), "npe"),
-                         (torch_pp.FilteredDirectPosteriorParameters(), "npe")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            build(params, te, tprior, kind=kind)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        build(MCMCPosteriorParameters(), te, tprior, kind="vf")
+    for kind in ("npe", "nle"):
+        vi = build(VIPosteriorParameters(q="nsf", vi_method="fKL"), te, tprior, kind=kind)
+        assert isinstance(vi, VIPosterior) and (vi._q_name, vi.vi_method) == ("nsf", "fKL")
+    filtered = build(torch_pp.FilteredDirectPosteriorParameters(filter_quantile=0.2), te, tprior,
+                     kind="npe")
+    assert isinstance(filtered, FilteredDirectPosterior) and filtered.filter_quantile == 0.2
     with pytest.warns(UserWarning, match="takes precedence"):
         torch_pp.check_legacy_sampler_args({"mcmc_parameters": None}, {"sample_with": ("vi", "mcmc")})
     with pytest.raises(ValueError, match="Cannot combine"):

@@ -44,6 +44,7 @@ from sbi_tpu_torch.inference import (
     RatioBasedPotential,
     RejectionPosterior,
     RejectionPosteriorParameters,
+    VIPosterior,
     VIPosteriorParameters,
 )
 from sbi_tpu_torch.inference.posteriors.posterior_parameters import build_posterior_from_parameters
@@ -339,8 +340,8 @@ def test_nre_posterior_routes():
     direct = build_posterior_from_parameters(MCMCPosteriorParameters(), te, prior, kind="nre")
     assert isinstance(direct.potential_fn, RatioBasedPotential)
     for kwargs in (dict(sample_with="vi"), dict(posterior_parameters=VIPosteriorParameters())):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            trainer.build_posterior(**kwargs)
+        vi = trainer.build_posterior(**kwargs)
+        assert isinstance(vi, VIPosterior) and isinstance(vi.potential_fn, RatioBasedPotential)
     with pytest.raises(ValueError, match="Cannot combine"):
         trainer.build_posterior(posterior_parameters=MCMCPosteriorParameters(),
                                 mcmc_parameters=dict(num_chains=2))
